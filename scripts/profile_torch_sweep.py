@@ -1,0 +1,85 @@
+#!/usr/bin/env python3
+"""Where a sweep of the port's main path spends its time, on one GPU.
+
+    python3 scripts/profile_torch_sweep.py [--moves 64 8] [--sweeps 10]
+
+For each n_moves: builds the headline hard-disk system (N = 1,048,576,
+phi 0.5, nmax 7), warms up, then over ``--sweeps`` sweeps measures
+  * wall ms per sweep (host clock around work that ends in a synchronize),
+  * host ms per sweep to enqueue the work (host clock, no synchronize),
+  * device busy ms per sweep and kernel time by name (torch.profiler),
+and prints one JSON line per n_moves with the device idle share
+1 - busy / wall. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from mcjax_torch import bench  # noqa: E402
+from mcjax_torch.ops.random import TorchRandoms  # noqa: E402
+from mcjax_torch.ops.sweep import run_sweeps  # noqa: E402
+
+
+def measure(n_moves: int, sweeps: int) -> dict:
+    cfg, pot, st = bench.build(1 << 20, 0.5, 2.0, 7, n_moves, device="cuda")
+    rnd = TorchRandoms(torch.Generator("cuda").manual_seed(0))
+    st, _ = run_sweeps(cfg, pot, st, sweeps, rnd)
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    st, m = run_sweeps(cfg, pot, st, sweeps, rnd)
+    t_enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter() - t0
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        st, m = run_sweeps(cfg, pot, st, sweeps, rnd)
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for ev in prof.key_averages():            # kernels only, not their ops
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = ev.key[:60]
+            by_name[name] = by_name.get(name, 0.0) + \
+                ev.self_device_time_total / 1e3
+    busy = sum(by_name.values())
+    wall_ms = 1e3 * t_wall / sweeps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "n_moves": n_moves,
+        "wall_ms_per_sweep": wall_ms,
+        "enqueue_ms_per_sweep": 1e3 * t_enqueue / sweeps,
+        "device_busy_ms_per_sweep": (busy / sweeps) if busy else None,
+        "device_idle_share": (1 - busy / sweeps / wall_ms) if busy else None,
+        "kernels_ms_per_sweep": {k: v / sweeps for k, v in top},
+    }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--moves", type=int, nargs="+", default=[64, 8])
+    ap.add_argument("--sweeps", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_sweep: needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    for n_moves in args.moves:
+        res = measure(n_moves, args.sweeps)
+        res["card"] = smi
+        print(json.dumps(res))
+
+
+if __name__ == "__main__":
+    main()
