@@ -4,17 +4,29 @@
     python3 chip_smoke.py
 
 Run from the repository root. It builds the port's CUDA kernels from
-``mcjax_torch/csrc`` with nvcc, holds each kernel bit for bit against its
-plain PyTorch version on the card at the headline size (N = 1,048,576 hard
-disks, phi 0.5, nmax 7, n_moves 64), replays a small run through the kernels
-and through the plain CPU path with the same random numbers, then drives the
-main path (``mcjax_torch.bench.run_bench``) at n_moves 64 and 8 and checks
-launch counts, overflow, particle count, overlaps and acceptance. Any failure
-raises and the script exits non-zero. Without a CUDA device, or without the
-repository beside it, it exits non-zero and prints no result.
+``mcjax_torch/csrc`` with nvcc (one nvcc per source, all started together)
+and checks two paths, each through the user's entry point
+(``mcjax_torch.bench``):
 
-The second-to-last lines are a JSON object of per-kernel numbers and the
-card's name and power limit; the last line is
+* 2D hard disks (N = 1,048,576, phi 0.5, nmax 7, n_moves 64 and 8): each
+  kernel held bit for bit against its plain PyTorch version at full size, a
+  small run through the kernels against the plain CPU path fed the same
+  random numbers, then the main path with launch counts, overflow, particle
+  count, overlaps and acceptance checked.
+* 3D Lennard-Jones (N = 1,000,000, rho 0.8, nmax 24, n_moves 60): the LJ
+  sub-step kernel against its plain version for all 8 colors at full size
+  after a few sweeps (bit for bit outside cells where a decision came
+  within a relative NEAR_TIE of a tie, whose count is printed; dE within
+  DE_REL + DE_ABS), the 3D shift kernel bit for bit for 3 axes x 2 signs, a
+  small run through the kernels against the plain CPU path, then the main
+  path (30 + 30 sweeps) with launch counts, overflow, N, ``validate_state``
+  and the energy anchor (summed dE against the float64 total-energy
+  difference, within ANCHOR_REL).
+
+Any failure raises and the script exits non-zero. Without a CUDA device,
+or without the repository beside it, it exits non-zero and prints no
+result. The second-to-last lines are a JSON object of per-kernel numbers
+and the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -32,12 +44,23 @@ import torch
 # float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
-# Operations of one pair test: 2 subtracts, 1 multiply, 1 fma (2), 1 compare.
+# Operations of one hard-disk pair test: 2 subtracts, 1 multiply, 1 fma
+# (2), 1 compare.
 OPS_PER_PAIR_TEST = 6
+# Operations of one Lennard-Jones pair term: squared distance 8 (3
+# subtracts, 1 multiply, 2 fmas), clamp 1, reciprocal 1, inv2 1, inv6 2,
+# bracket fma 2, energy fma 2, cutoff compare and select 2, accumulate 1.
+OPS_PER_LJ_TERM = 20
 
-MAIN_SWEEPS = 20      # warm-up and timed run of the main path, each
+MAIN_SWEEPS = 20      # 2D main path: warm-up and timed run, each
+LJ_SWEEPS = 30        # lj3d main path: warm-up and timed run, each
+LJ_WARMUP = 3         # lj3d sweeps before the kernel-vs-plain check
 TIMED_LAUNCHES = 20   # kernel launches per timing loop
 PLAIN_RUNS = 2        # plain-version calls per timing loop
+
+NEAR_TIE = 1e-5       # |acc_u - a| <= NEAR_TIE * a, a = exp(-beta dE)
+DE_REL, DE_ABS = 1e-5, 1e-4
+ANCHOR_REL = 1e-3
 
 
 def smi_line() -> str:
@@ -102,36 +125,10 @@ class Replay:
         return self.log.pop(0)
 
 
-def check_kernels_against_plain(mt, cuda_substep, cuda_shift):
-    """Phase 3: each kernel vs its plain version, at 1M, same inputs."""
-    from mcjax_torch import bench
-    cfg, pot, st = bench.build(1 << 20, 0.5, 2.0, 7, 64, seed=0,
-                               device="cuda")
-    rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(1))
-    st, _ = mt.run_sweeps(cfg, pot, st, 1, rnd)        # leave the lattice
-    perm, axis, d = rnd.schedule(cfg, st.sweep)
-    err = {"substep": 0.0, "shift": 0.0}
-    inputs = {}
-    for i in range(cfg.n_colors):
-        pick_u, disp, _ = rnd.substep(cfg, st.sweep, i, False)
-        color = int(perm[i])
-        before = st.pos.clone()
-        own, acc, prop = cuda_substep.color_substep(cfg, pot, color, st.pos,
-                                                    st.occ, pick_u, disp)
-        k_acc, k_prop = cuda_substep.substep(cfg, pot, st.pos, st.occ, perm,
-                                             i, pick_u, disp)
-        torch.cuda.synchronize()
-        want = before
-        want[color] = own
-        err["substep"] = max(err["substep"], abs_err(st.pos, want))
-        if not bitwise_equal(st.pos, want):
-            raise AssertionError(f"substep kernel != plain, color {color}")
-        if (int(k_acc), int(k_prop)) != (int(acc), int(prop)):
-            raise AssertionError(f"substep counts {int(k_acc)}/{int(k_prop)}"
-                                 f" != plain {int(acc)}/{int(prop)}")
-        print(f"substep color {color}: bitwise equal, accepted {int(acc)} "
-              f"of {int(prop)}")
-        inputs["substep"] = (before, perm, i, pick_u, disp)
+def check_shift_kernel(cfg, st, d, cuda_shift) -> float:
+    """The shift kernel against its plain version, bit for bit, on every
+    axis and both signs of d; returns the largest absolute difference."""
+    err = 0.0
     for ax in range(cfg.dim):
         for sign in (1, -1):
             a = torch.tensor(ax, dtype=torch.int32, device="cuda")
@@ -140,21 +137,57 @@ def check_kernels_against_plain(mt, cuda_substep, cuda_shift):
                                                          a, dd)
             k_pos, k_occ, k_ovf = cuda_shift.shift(cfg, st.pos, st.occ, a, dd)
             torch.cuda.synchronize()
-            err["shift"] = max(err["shift"], abs_err(k_pos, p_pos),
-                               abs_err(k_occ, p_occ))
+            err = max(err, abs_err(k_pos, p_pos), abs_err(k_occ, p_occ))
             if not (bitwise_equal(k_pos, p_pos) and bitwise_equal(k_occ, p_occ)
                     and bool(k_ovf) == bool(p_ovf)):
-                raise AssertionError(f"shift kernel != plain, axis {ax}, "
-                                     f"d {float(dd)}")
-            print(f"shift axis {ax} d {float(dd):+.6f}: bitwise equal, "
-                  f"overflow {bool(k_ovf)}")
+                raise AssertionError(f"{cfg.dim}D shift kernel != plain, axis "
+                                     f"{ax}, d {float(dd)}")
+            print(f"{cfg.dim}D shift axis {ax} d {float(dd):+.6f}: bitwise "
+                  f"equal, overflow {bool(k_ovf)}")
+    return err
+
+
+def check_kernels_against_plain(mt, cuda_substep, cuda_shift):
+    """2D: each kernel vs its plain version, at 1M, same inputs."""
+    from mcjax_torch import bench
+    cfg, pot, st = bench.build(1 << 20, 0.5, 2.0, 7, 64, seed=0,
+                               device="cuda")
+    rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(1))
+    st, _ = mt.run_sweeps(cfg, pot, st, 1, rnd)        # leave the lattice
+    perm, axis, d = rnd.schedule(cfg, st.sweep)
+    err = {}
+    inputs = {}
+    sub_err = 0.0
+    for i in range(cfg.n_colors):
+        pick_u, disp, _ = rnd.substep(cfg, st.sweep, i, False)
+        color = int(perm[i])
+        before = st.pos.clone()
+        own, _, acc, prop = cuda_substep.color_substep(cfg, pot, color,
+                                                       st.pos, st.occ, pick_u,
+                                                       disp)
+        _, k_acc, k_prop = cuda_substep.substep(cfg, pot, st.pos, st.occ,
+                                                perm, i, pick_u, disp)
+        torch.cuda.synchronize()
+        want = before
+        want[color] = own
+        sub_err = max(sub_err, abs_err(st.pos, want))
+        if not bitwise_equal(st.pos, want):
+            raise AssertionError(f"substep kernel != plain, color {color}")
+        if (int(k_acc), int(k_prop)) != (int(acc), int(prop)):
+            raise AssertionError(f"substep counts {int(k_acc)}/{int(k_prop)}"
+                                 f" != plain {int(acc)}/{int(prop)}")
+        print(f"substep color {color}: bitwise equal, accepted {int(acc)} "
+              f"of {int(prop)}")
+        inputs["substep"] = (before, perm, i, pick_u, disp)
+    err["substep"] = sub_err
+    err["shift"] = check_shift_kernel(cfg, st, d, cuda_shift)
     inputs["shift"] = (st.pos, st.occ, axis, d)
     return cfg, pot, st, err, inputs
 
 
 def check_small_run_against_cpu(mt):
-    """A small run through the kernels equals the plain CPU path fed the
-    same random numbers."""
+    """2D: a small run through the kernels equals the plain CPU path fed
+    the same random numbers."""
     from mcjax_torch import bench
     cfg, pot, st = bench.build(4096, 0.5, 2.0, 7, 16, device="cuda")
     rec = Recorder(mt.TorchRandoms(torch.Generator("cuda").manual_seed(2)))
@@ -172,9 +205,137 @@ def check_small_run_against_cpu(mt):
           f"accepted {m_gpu.accepted.tolist()}")
 
 
+def compare_lj_substep(cfg, pot, cuda_substep, pos, occ, perm, i, draws,
+                       pos_plain, occ_plain) -> int:
+    """One LJ sub-step through the kernel's wrapper (on ``pos``, in place)
+    and the plain version on the CPU (on ``pos_plain``, in place; the same
+    inputs), held to the near-tie rule. Returns the count of cells that
+    differ, all near ties."""
+    color = int(perm[i])
+    dev = pos_plain.device
+    rec = {}
+    own, de, acc, prop = cuda_substep.color_substep(
+        cfg, pot, color, pos_plain, occ_plain, *(t.to(dev) for t in draws),
+        rec)
+    k_de, k_acc, k_prop = cuda_substep.substep(cfg, pot, pos, occ, perm, i,
+                                               *draws)
+    torch.cuda.synchronize()
+    got = pos[color].to(dev)
+    differs = (got.view(torch.int32) != own.view(torch.int32)).any(0).any(0)
+    ties = rec["margin"] <= NEAR_TIE
+    if bool((differs & ~ties).any()):
+        raise AssertionError(f"LJ substep kernel != plain outside near ties, "
+                             f"color {color}: {int(differs.sum())} cells")
+    if int(k_prop) != int(prop):
+        raise AssertionError(f"LJ proposals {int(k_prop)} != {int(prop)}")
+    de_gap = abs(float(k_de) - float(de))
+    if not bool(differs.any()):
+        if int(k_acc) != int(acc) or de_gap > DE_REL * abs(float(de)) + DE_ABS:
+            raise AssertionError(f"LJ substep color {color}: accepted "
+                                 f"{int(k_acc)} vs {int(acc)}, dE "
+                                 f"{float(k_de)} vs {float(de)}")
+    pos_plain[color] = own
+    return int(differs.sum())
+
+
+def check_lj_against_plain(mt, cuda_substep, cuda_shift):
+    """3D LJ at N = 1,000,000: the sub-step kernel vs its plain version for
+    all 8 colors after LJ_WARMUP sweeps, and the 3D shift kernel."""
+    from mcjax_torch import bench
+    cfg, pot, st = bench.build_lj3d(1_000_000, 24, 60, seed=0, device="cuda")
+    rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(4))
+    st, _ = mt.run_sweeps(cfg, pot, st, LJ_WARMUP, rnd)
+    perm, axis, d = rnd.schedule(cfg, st.sweep)
+    plain = st.pos.clone()
+    n_diff = n_ties = 0
+    worst_cell = worst_sub = 0.0
+    inputs = {}
+    for i in range(cfg.n_colors):
+        draws = rnd.substep(cfg, st.sweep, i, True)
+        color = int(perm[i])
+        before = st.pos.clone()
+        rec = {}
+        own, de, acc, prop = cuda_substep.color_substep(
+            cfg, pot, color, before, st.occ, *draws, rec)
+        de_map = torch.empty(cfg.block_shape, dtype=torch.float32,
+                             device="cuda")
+        acc_map = torch.empty(cfg.block_shape, dtype=torch.int32,
+                              device="cuda")
+        cuda_substep.launch_lj_kernel(cfg, pot, st.pos, st.occ, perm, i,
+                                      *draws, de_map, acc_map)
+        torch.cuda.synchronize()
+        differs = (st.pos[color].view(torch.int32)
+                   != own.view(torch.int32)).any(0).any(0)
+        ties = rec["margin"] <= NEAR_TIE
+        if bool((differs & ~ties).any()):
+            raise AssertionError(f"LJ substep kernel != plain outside near "
+                                 f"ties, color {color}: "
+                                 f"{int((differs & ~ties).sum())} cells")
+        k_de = float(de_map.double().sum())
+        k_acc = int(acc_map.sum())
+        gap = abs(k_de - float(de))
+        same = ~differs
+        cell_gap = float((de_map - rec["de_cell"]).abs()[same].max())
+        if not bool(differs.any()) and (
+                k_acc != int(acc) or gap > DE_REL * abs(float(de)) + DE_ABS):
+            raise AssertionError(f"LJ substep color {color}: accepted {k_acc}"
+                                 f" vs {int(acc)}, dE {k_de} vs {float(de)}")
+        n_diff += int(differs.sum())
+        n_ties += int(ties.sum())
+        worst_cell = max(worst_cell, cell_gap)
+        worst_sub = max(worst_sub, gap)
+        print(f"LJ substep color {color}: equal outside near ties "
+              f"(differing cells {int(differs.sum())}, near-tie cells "
+              f"{int(ties.sum())}); accepted {k_acc} of {int(prop)}; dE "
+              f"kernel {k_de:.6f} plain {float(de):.6f}; largest per-cell "
+              f"dE difference {cell_gap:.3e}")
+        inputs["substep"] = (before, perm, i, draws, rec)
+    print(f"LJ substep, 8 colors at N = 1,000,000: {n_diff} differing cells,"
+          f" all near ties; near-tie cells {n_ties}; largest dE difference "
+          f"per cell {worst_cell:.3e}, per sub-step {worst_sub:.3e}")
+    err = {"substep_lj3d": worst_cell,
+           "shift3d": check_shift_kernel(cfg, st, d, cuda_shift)}
+    inputs["shift3d"] = (st.pos, st.occ, axis, d)
+    return cfg, pot, st, err, inputs
+
+
+def check_lj_small_run_against_cpu(mt, cuda_substep, cuda_shift):
+    """3D LJ, 4000 atoms, 5 sweeps: kernels on the GPU against the plain
+    CPU path fed the same random numbers, sub-step by sub-step, held to the
+    near-tie rule (a state that differs at a near tie is carried over from
+    the GPU), every shift bit for bit."""
+    from mcjax_torch import bench
+    cfg, pot, st = bench.build_lj3d(4000, 24, 16, device="cuda")
+    cpu = mt.init_state(cfg, "cpu", mt.ops.cells.stratified_positions(cfg))
+    rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(5))
+    pos, occ = st.pos, st.occ
+    p_pos, p_occ = cpu.pos, cpu.occ
+    ties = 0
+    for sweep in range(5):
+        perm, axis, d = rnd.schedule(cfg, sweep)
+        for i in range(cfg.n_colors):
+            draws = rnd.substep(cfg, sweep, i, True)
+            n_diff = compare_lj_substep(cfg, pot, cuda_substep, pos, occ,
+                                        perm, i, draws, p_pos, p_occ)
+            if n_diff:
+                ties += n_diff
+                p_pos.copy_(pos.cpu())
+        pos, occ, ovf = cuda_shift.shift(cfg, pos, occ, axis, d)
+        p_pos, p_occ, p_ovf = cuda_shift.shift(cfg, p_pos, p_occ, axis.cpu(),
+                                               d.cpu())
+        if not (bitwise_equal(pos.cpu(), p_pos) and bitwise_equal(occ.cpu(),
+                                                                   p_occ)
+                and bool(ovf) == bool(p_ovf)):
+            raise AssertionError(f"LJ small run: shift {sweep} differs")
+    print(f"LJ small run (N=4000, 5 sweeps): GPU kernels == CPU plain path "
+          f"outside near ties (differing cells {ties}); {int(occ.sum())} "
+          "particles")
+
+
 def substep_bound_ms(cfg, st, inputs, cells) -> tuple[float, str]:
-    """Least time for one sub-step on this run's data: live slots read and
-    written once, random inputs read once; pair tests the occupancies need."""
+    """2D: least time for one sub-step on this run's data: live slots read
+    and written once, random inputs read once; pair tests the occupancies
+    need."""
     _, perm, i, pick_u, disp = inputs
     color = int(perm[i])
     occ = st.occ
@@ -187,32 +348,103 @@ def substep_bound_ms(cfg, st, inputs, cells) -> tuple[float, str]:
     own = occ[color].long()
     tests = torch.where(own > 0, (own - 1) + nbr_occ.long().sum(0), 0)
     ops = OPS_PER_PAIR_TEST * cfg.n_moves * int(tests.sum())
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return bound(nbytes, ops)
+
+
+def lj_substep_bound_ms(cfg, st, inputs, cells) -> tuple[float, str]:
+    """3D LJ: least time for one sub-step on this run's data. Bytes: live
+    slots and occupancies read once, the random inputs read once, the own
+    live slots and the two per-cell maps written once. Operations: the pair
+    terms the frozen-cache algorithm needs, per cell occ x (frozen live
+    slots) for the cache, and for each move that stays in its cell the
+    frozen live slots plus 2 (occ - 1) own terms."""
+    _, perm, i, draws, rec = inputs
+    color = int(perm[i])
+    occ = st.occ
+    nbytes = (4 * cfg.dim * int(occ.sum()) + 4 * occ.numel()
+              + sum(4 * t.numel() for t in draws)
+              + 4 * cfg.dim * int(occ[color].sum()) + 8 * cfg.cells_per_color)
+    _, nbr_occ = cells.neighbor_stack(cfg, st.pos, occ, color)
+    froz = nbr_occ.long().sum(0)
+    own = occ[color].long()
+    moves = rec["in_cell"].long()
+    terms = own * froz + moves * (froz + 2 * (own - 1).clamp(min=0))
+    return bound(nbytes, OPS_PER_LJ_TERM * int(terms.sum()))
 
 
 def shift_bound_ms(cfg, st) -> tuple[float, str]:
     """Live slots read once, the whole output slab and occupancy written."""
     nbytes = (4 * cfg.dim * int(st.occ.sum()) + 4 * st.occ.numel()
               + 4 * st.pos.numel() + 4 * st.occ.numel())
-    return 1e3 * nbytes / PEAK_BYTES_PER_S, "bytes"
+    return bound(nbytes, 0)
+
+
+def bound(nbytes: int, ops: int) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def reset(libs) -> None:
+    for lib in libs.values():
+        lib.launches = 0
 
 
 def run_main_path(mt, bench, libs, n_moves: int) -> dict:
-    """Phase 4: the main path through the user's entry point, with every
-    kernel's launch count taken over exactly this run."""
-    for lib in libs.values():
-        lib.launches = 0
-    result, cfg, pot, st, m = bench.run_bench(n_moves=n_moves,
-                                              sweeps=MAIN_SWEEPS)
+    """2D main path through the user's entry point, with every kernel's
+    launch count taken over exactly this run."""
+    reset(libs)
+    result, cfg, pot, st, _, m = bench.run_bench(n_moves=n_moves,
+                                                 sweeps=MAIN_SWEEPS)
     torch.cuda.synchronize()
     launches = {name: lib.launches for name, lib in libs.items()}
     total_sweeps = 2 * MAIN_SWEEPS                   # warm-up + timed
     if launches != {"substep": cfg.n_colors * total_sweeps,
+                    "substep_lj": 0, "shift": total_sweeps}:
+        raise AssertionError(f"launch counts {launches} for {total_sweeps} "
+                             "sweeps")
+    check_result(mt, cfg, pot, st, result)
+    result.update(mt.validate_state(cfg, st, pot))   # incl. no overlap
+    result["launches"] = launches
+    result["ms_per_sweep"] = 1e3 * result["seconds"] / MAIN_SWEEPS
+    print(json.dumps(result))
+    return result
+
+
+def run_lj_main_path(mt, bench, libs) -> dict:
+    """lj3d main path through the user's entry point: launch counts over
+    exactly this run, then the invariants and the energy anchor."""
+    cfg0, pot0, start = bench.build_lj3d(1_000_000, 24, 60, seed=0,
+                                         device="cuda")
+    e0 = float(mt.total_energy_cells(cfg0, pot0, start.pos, start.occ,
+                                     torch.float64))
+    del start
+    reset(libs)
+    result, cfg, pot, st, warm, m = bench.run_bench_lj3d(sweeps=LJ_SWEEPS)
+    torch.cuda.synchronize()
+    launches = {name: lib.launches for name, lib in libs.items()}
+    total_sweeps = 2 * LJ_SWEEPS
+    if launches != {"substep": 0, "substep_lj": cfg.n_colors * total_sweeps,
                     "shift": total_sweeps}:
         raise AssertionError(f"launch counts {launches} for {total_sweeps} "
                              "sweeps")
+    check_result(mt, cfg, pot, st, result)
+    result.update(mt.validate_state(cfg, st, pot))
+    e1 = float(mt.total_energy_cells(cfg, pot, st.pos, st.occ, torch.float64))
+    de = float(warm.delta_e.double().sum() + m.delta_e.double().sum())
+    gap = abs((e1 - e0) - de)
+    if gap > ANCHOR_REL * max(1.0, abs(e1 - e0)):
+        raise AssertionError(f"energy anchor: E {e0} -> {e1} "
+                             f"(difference {e1 - e0}), summed dE {de}")
+    result.update(launches=launches,
+                  ms_per_sweep=1e3 * result["seconds"] / LJ_SWEEPS,
+                  energy_start=e0, energy_end=e1, summed_de=de,
+                  anchor_rel_gap=gap / max(1.0, abs(e1 - e0)))
+    print(json.dumps(result))
+    return result
+
+
+def check_result(mt, cfg, pot, st, result) -> None:
     if result["overflow"]:
         raise AssertionError("capacity overflow on the main path")
     if int(st.occ.sum()) != cfg.n_atoms:
@@ -222,11 +454,6 @@ def run_main_path(mt, bench, libs, n_moves: int) -> dict:
         raise AssertionError(f"acceptance {result['acceptance']}")
     if not bool(torch.isfinite(st.pos).all()):
         raise AssertionError("non-finite positions")
-    result.update(mt.validate_state(cfg, st, pot))   # incl. no overlap
-    result["launches"] = launches
-    result["ms_per_sweep"] = 1e3 * result["seconds"] / MAIN_SWEEPS
-    print(json.dumps(result))
-    return result
 
 
 def main() -> int:
@@ -245,7 +472,8 @@ def main() -> int:
                           timeout=60).stdout.strip().splitlines()[-1]
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc: {nvcc}")
 
-    libs = {"substep": cuda_substep.LIB, "shift": cuda_shift.LIB}
+    libs = {"substep": cuda_substep.LIB, "substep_lj": cuda_substep.LIB_LJ,
+            "shift": cuda_shift.LIB}
     build_s = _build.build_all(list(libs.values()))
     print(f"kernels built in {build_s:.1f} s")
     for name, lib in libs.items():
@@ -253,68 +481,120 @@ def main() -> int:
         entry = name
         for line in lib.build_log.splitlines():     # nvcc -Xptxas -v
             if "Compiling entry function" in line:
-                nmax = re.search(r"ILi(\d+)E", line)
-                entry = f"{name}<{nmax.group(1)}>" if nmax else name
+                param = re.search(r"ILi(\d+)E", line)
+                entry = f"{name}<{param.group(1)}>" if param else name
             elif "registers" in line or "spill" in line:
                 print(f"  {entry}: {line.split(':')[-1].strip()}")
 
+    # 2D hard disks
     cfg, pot, st, err, inputs = check_kernels_against_plain(mt, cuda_substep,
                                                             cuda_shift)
     check_small_run_against_cpu(mt)
+    # 3D Lennard-Jones
+    lcfg, lpot, lst, lerr, linputs = check_lj_against_plain(mt, cuda_substep,
+                                                            cuda_shift)
+    err.update(lerr)
+    check_lj_small_run_against_cpu(mt, cuda_substep, cuda_shift)
 
-    # Kernel and plain-version times at the main-path shapes.
-    # Kernels alone: the wrappers' checks, allocations and count
-    # reductions stay out of the timed loop.
+    # Kernel and plain-version times at the main-path shapes. Kernels
+    # alone: the wrappers' checks, allocations and count reductions stay
+    # out of the timed loop, and these launches are not counted.
     before, perm, i, pick_u, disp = inputs["substep"]
     work = before.clone()
     acc_map = torch.empty(cfg.block_shape, dtype=torch.int32, device="cuda")
-    sub_ms = cuda_ms(lambda: cuda_substep.launch_kernel(
+    times = {}
+    times["substep"] = cuda_ms(lambda: cuda_substep.launch_kernel(
         cfg, pot, work, st.occ, perm, i, pick_u, disp, acc_map),
         TIMED_LAUNCHES)
     color = int(perm[i])
-    sub_plain_ms = cuda_ms(lambda: cuda_substep.color_substep(
+    times["substep_plain"] = cuda_ms(lambda: cuda_substep.color_substep(
         cfg, pot, color, before, st.occ, pick_u, disp), PLAIN_RUNS)
     s_pos, s_occ, s_axis, s_d = inputs["shift"]
     outs = (torch.empty_like(s_pos), torch.empty_like(s_occ),
             torch.zeros((), dtype=torch.int32, device="cuda"))
-    shift_ms = cuda_ms(lambda: cuda_shift.launch_kernel(
+    times["shift"] = cuda_ms(lambda: cuda_shift.launch_kernel(
         cfg, s_pos, s_occ, s_axis, s_d, *outs), TIMED_LAUNCHES)
-    shift_plain_ms = cuda_ms(lambda: cuda_shift.shift_rebin(
+    times["shift_plain"] = cuda_ms(lambda: cuda_shift.shift_rebin(
         cfg, s_pos, s_occ, s_axis, s_d), PLAIN_RUNS)
     rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(3))
     rng_ms = cuda_ms(lambda: rnd.substep(cfg, 0, 0, False), TIMED_LAUNCHES)
     sched_ms = cuda_ms(lambda: rnd.schedule(cfg, 0), TIMED_LAUNCHES)
-    sub_bound, sub_by = substep_bound_ms(cfg, st, inputs["substep"], cells)
-    shift_bound, shift_by = shift_bound_ms(cfg, st)
+
+    l_before, l_perm, l_i, l_draws, _ = linputs["substep"]
+    l_work = l_before.clone()
+    de_map = torch.empty(lcfg.block_shape, dtype=torch.float32, device="cuda")
+    l_acc = torch.empty(lcfg.block_shape, dtype=torch.int32, device="cuda")
+    times["substep_lj3d"] = cuda_ms(lambda: cuda_substep.launch_lj_kernel(
+        lcfg, lpot, l_work, lst.occ, l_perm, l_i, *l_draws, de_map, l_acc),
+        TIMED_LAUNCHES)
+    l_color = int(l_perm[l_i])
+    times["substep_lj3d_plain"] = cuda_ms(lambda: cuda_substep.color_substep(
+        lcfg, lpot, l_color, l_before, lst.occ, *l_draws), PLAIN_RUNS)
+    t_pos, t_occ, t_axis, t_d = linputs["shift3d"]
+    l_outs = (torch.empty_like(t_pos), torch.empty_like(t_occ),
+              torch.zeros((), dtype=torch.int32, device="cuda"))
+    times["shift3d"] = cuda_ms(lambda: cuda_shift.launch_kernel(
+        lcfg, t_pos, t_occ, t_axis, t_d, *l_outs), TIMED_LAUNCHES)
+    times["shift3d_plain"] = cuda_ms(lambda: cuda_shift.shift_rebin(
+        lcfg, t_pos, t_occ, t_axis, t_d), PLAIN_RUNS)
+    l_rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(6))
+    l_rng_ms = cuda_ms(lambda: l_rnd.substep(lcfg, 0, 0, True),
+                       TIMED_LAUNCHES)
+    for lib in libs.values():
+        lib.launches = 0
+
+    bounds = {
+        "substep": substep_bound_ms(cfg, st, inputs["substep"], cells),
+        "shift": shift_bound_ms(cfg, st),
+        "substep_lj3d": lj_substep_bound_ms(lcfg, lst, linputs["substep"],
+                                            cells),
+        "shift3d": shift_bound_ms(lcfg, lst),
+    }
+    del lst, linputs, l_before, l_work, l_draws, t_pos, l_outs
 
     main64 = run_main_path(mt, bench, libs, 64)
     main8 = run_main_path(mt, bench, libs, 8)
+    lj = run_lj_main_path(mt, bench, libs)
     for res in (main64, main8):
-        print(f"n_moves {res['n_moves']}: {res['value']:.6e} moves/s, "
-              f"{res['ms_per_sweep']:.6f} ms/sweep ({smi})")
-    print(f"per sweep at n_moves 64 ({smi}): substep kernel 4 x {sub_ms:.6f} "
-          f"ms, random draws 4 x {rng_ms:.6f} ms, schedule draw "
-          f"{sched_ms:.6f} ms, shift kernel {shift_ms:.6f} ms; bounds: "
-          f"substep {sub_bound:.6f} ms ({sub_by}), shift {shift_bound:.6f} ms "
-          f"({shift_by}); plain: substep {sub_plain_ms:.3f} ms, shift "
-          f"{shift_plain_ms:.3f} ms")
+        print(f"hard disks, n_moves {res['n_moves']}: {res['value']:.6e} "
+              f"moves/s, {res['ms_per_sweep']:.6f} ms/sweep ({smi})")
+    print(f"lj3d, n_moves {lj['n_moves']}: {lj['value']:.6e} moves/s, "
+          f"{lj['ms_per_sweep']:.6f} ms/sweep, acceptance "
+          f"{lj['acceptance']:.6f}, energy anchor gap {lj['anchor_rel_gap']:.3e}"
+          f" ({smi})")
+    print(f"per sweep at n_moves 64 ({smi}): substep kernel 4 x "
+          f"{times['substep']:.6f} ms, random draws 4 x {rng_ms:.6f} ms, "
+          f"schedule draw {sched_ms:.6f} ms, shift kernel "
+          f"{times['shift']:.6f} ms")
+    print(f"per lj3d sweep ({smi}): LJ substep kernel 8 x "
+          f"{times['substep_lj3d']:.6f} ms, random draws 8 x {l_rng_ms:.6f} "
+          f"ms, 3D shift kernel {times['shift3d']:.6f} ms")
+    for name, (b, by) in bounds.items():
+        print(f"{name}: kernel {times[name]:.6f} ms, bound {b:.6f} ms ({by}),"
+              f" plain {times[name + '_plain']:.3f} ms")
 
+    sources = {"substep": "substep.cu", "substep_lj3d": "substep_lj.cu",
+               "shift": "shift.cu", "shift3d": "shift.cu"}
+    replaces = {
+        "substep": "mcjax/ops/pallas_ring.py:919, mcjax/ops/pallas_ring.py:495",
+        "substep_lj3d": "mcjax/ops/pallas_sweep.py:1348, "
+                        "mcjax/ops/pallas_sweep.py:878, "
+                        "mcjax/ops/pallas_ring.py:495",
+        "shift": "mcjax/ops/pallas_ring.py:1246, mcjax/ops/pallas_shift.py:194",
+        "shift3d": "mcjax/ops/pallas_shift.py:194",
+    }
+    launches = {"substep": main64["launches"]["substep"],
+                "shift": main64["launches"]["shift"],
+                "substep_lj3d": lj["launches"]["substep_lj"],
+                "shift3d": lj["launches"]["shift"]}
     kernels = [
-        {"name": "substep", "route": "cuda",
-         "source": "mcjax_torch/csrc/substep.cu",
-         "replaces": "mcjax/ops/pallas_ring.py:919",
-         "launches": main64["launches"]["substep"],
-         "max_abs_err": err["substep"], "ms": sub_ms,
-         "plain_ms": sub_plain_ms, "bound_ms": sub_bound, "bound_by": sub_by,
-         "library_ms": None},
-        {"name": "shift", "route": "cuda",
-         "source": "mcjax_torch/csrc/shift.cu",
-         "replaces": "mcjax/ops/pallas_ring.py:1246",
-         "launches": main64["launches"]["shift"],
-         "max_abs_err": err["shift"], "ms": shift_ms,
-         "plain_ms": shift_plain_ms, "bound_ms": shift_bound,
-         "bound_by": shift_by, "library_ms": None},
-    ]
+        {"name": name, "route": "cuda",
+         "source": f"mcjax_torch/csrc/{sources[name]}",
+         "replaces": replaces[name], "launches": launches[name],
+         "max_abs_err": err[name], "ms": times[name],
+         "plain_ms": times[name + "_plain"], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": None}
+        for name in ("substep", "shift", "substep_lj3d", "shift3d")]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

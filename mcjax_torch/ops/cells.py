@@ -95,6 +95,40 @@ def lattice_positions(cfg: SimConfig, device: torch.device | str = "cpu"
                            device=device)
 
 
+def stratified_positions(cfg: SimConfig, device: torch.device | str = "cpu"
+                         ) -> torch.Tensor:
+    """Cell-stratified start: every cell gets floor(N/cells) or
+    ceil(N/cells) particles, the ceil-count cells spread evenly through the
+    row-major cell order, each cell's particles on the first slots of an
+    m^dim sub-grid (m = ceil(count^(1/dim))). Computed in float64 on the
+    host and rounded to f32, as the JAX package does, so occupancy starts
+    bounded by ceil(N/cells) and nmax can be sized for the fluid.
+    """
+    dim, n = cfg.dim, cfg.n_atoms
+    cps = cfg.cells_per_side
+    n_cells = cps ** dim
+    w = cfg.cell_width
+    base, rem = divmod(n, n_cells)
+    top = base + (1 if rem else 0)
+    if top > cfg.nmax:
+        raise ValueError(f"stratified init needs nmax >= ceil(N/cells) = "
+                         f"{top}, got {cfg.nmax}")
+    counts = np.full((n_cells,), base, np.int32)
+    if rem:
+        counts[np.round(np.linspace(0, n_cells - 1, rem)).astype(int)] += 1
+    m = max(int(np.ceil(top ** (1.0 / dim) - 1e-9)), 1)
+    sub = np.stack(np.meshgrid(*([np.arange(m)] * dim), indexing="ij"),
+                   axis=-1).reshape(-1, dim)             # [m^dim, dim]
+    cell_idx = np.repeat(np.arange(n_cells), counts)
+    slot_in_cell = np.arange(n) - np.repeat(np.cumsum(counts) - counts,
+                                            counts)
+    cid = np.stack([(cell_idx // cps**k) % cps
+                    for k in range(dim - 1, -1, -1)], axis=-1)  # [N, dim]
+    pos = (cid * w - cfg.box_length / 2.0
+           + (sub[slot_in_cell] + 0.5) * (w / m))
+    return torch.as_tensor(pos.astype(np.float32), device=device)
+
+
 # ---------------------------------------------------------------------------
 # Binning
 # ---------------------------------------------------------------------------

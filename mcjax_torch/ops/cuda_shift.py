@@ -1,9 +1,10 @@
 """Grid shift: the wrapper of its CUDA kernel, with the plain version.
 
-The kernel (``csrc/shift.cu``) replaces the TPU kernel
-``mcjax/ops/pallas_ring.py::ring_shift``: shift every coordinate on one axis,
-re-bin, merge each cell's own slab with its donor neighbor's slab in a fixed
-candidate order and compact to nmax. Its plain version is
+The kernel (``csrc/shift.cu``, 2D and 3D) replaces the TPU kernels
+``mcjax/ops/pallas_ring.py::ring_shift`` and
+``mcjax/ops/pallas_shift.py::pallas_shift_rebin``: shift every coordinate on
+one axis, re-bin, merge each cell's own slab with its donor neighbor's slab
+in a fixed candidate order and compact to nmax. Its plain version is
 ``mcjax_torch.ops.cells.shift_rebin`` (imported here as ``shift_rebin``).
 """
 
@@ -20,7 +21,7 @@ from mcjax_torch.core.device import check_tensors
 from mcjax_torch.ops.cells import shift_rebin
 
 LIB = CudaLibrary("shift", {
-    "mcjax_shift_2d": [
+    "mcjax_shift": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -53,8 +54,6 @@ def shift(cfg: SimConfig, pos: torch.Tensor, occ: torch.Tensor,
         return shift_rebin(cfg, pos, occ, axis, d)
     if pos.device.type != "cuda":
         raise ValueError(f"no grid shift for device {pos.device}")
-    if cfg.dim != 2:
-        raise NotImplementedError("the CUDA grid shift covers 2D only")
     pos_out = torch.empty_like(pos)
     occ_out = torch.empty_like(occ)
     ovf = torch.zeros((), dtype=torch.int32, device=pos.device)
@@ -68,12 +67,11 @@ def launch_kernel(cfg: SimConfig, pos: torch.Tensor, occ: torch.Tensor,
     """One launch of the shift kernel on inputs ``shift`` has checked:
     writes pos_out and occ_out, and sets ``ovf`` (int32, zeroed by the
     caller) to 1 if a cell overflows."""
-    h, w = cfg.block_shape
     LIB.launch(
-        "mcjax_shift_2d",
+        "mcjax_shift",
         pos.data_ptr(), occ.data_ptr(), pos_out.data_ptr(), occ_out.data_ptr(),
         ovf.data_ptr(), axis.data_ptr(), d.data_ptr(),
-        h, w, cfg.nmax, cfg.cells_per_side,
+        cfg.dim, cfg.half_cps, cfg.nmax, cfg.cells_per_side,
         cfg.box_length, cfg.box_length / 2.0,
         float(np.float32(1.0 / cfg.cell_width)),
         torch.cuda.current_stream(pos.device).cuda_stream)

@@ -25,15 +25,14 @@ from mcjax_torch.ops.cuda_substep import color_substep
 from mcjax_torch.ops.random import RandomProvider
 
 __all__ = ["SweepMetrics", "cell_pairs", "color_substep", "mc_sweep",
-           "min_pair_distance", "run_sweeps", "total_interaction_cells"]
+           "min_pair_distance", "run_sweeps", "total_energy_cells",
+           "total_interaction_cells"]
 
 
 class SweepMetrics(NamedTuple):
-    """Per-sweep observables, tensors on the state's device.
+    """Per-sweep observables, tensors on the state's device."""
 
-    Hard-core models only so far, so there is no energy delta.
-    """
-
+    delta_e: torch.Tensor    # summed dE of accepted moves (float32)
     accepted: torch.Tensor   # accepted moves (int64)
     proposed: torch.Tensor   # proposals in non-empty cells (int64)
     overflow: torch.Tensor   # grid-shift capacity violation this sweep (bool)
@@ -48,13 +47,15 @@ def mc_sweep(cfg: SimConfig, pot: Potential, state: SimState,
     """
     perm, axis, d = randoms.schedule(cfg, state.sweep)
     pos, occ = state.pos, state.occ
+    de = torch.zeros((), dtype=torch.float32, device=pos.device)
     n_acc = torch.zeros((), dtype=torch.int64, device=pos.device)
     n_prop = torch.zeros((), dtype=torch.int64, device=pos.device)
     for i in range(cfg.n_colors):
-        pick_u, disp, _ = randoms.substep(cfg, state.sweep, i,
-                                          need_acc=pot.has_energy)
-        acc, prop = cuda_substep.substep(cfg, pot, pos, occ, perm, i,
-                                         pick_u, disp)
+        pick_u, disp, acc_u = randoms.substep(cfg, state.sweep, i,
+                                              need_acc=pot.has_energy)
+        de_i, acc, prop = cuda_substep.substep(cfg, pot, pos, occ, perm, i,
+                                               pick_u, disp, acc_u)
+        de = de + de_i
         n_acc = n_acc + acc
         n_prop = n_prop + prop
     if (state.sweep + 1) % cfg.shift_every == 0:
@@ -63,7 +64,7 @@ def mc_sweep(cfg: SimConfig, pot: Potential, state: SimState,
         ovf = torch.zeros((), dtype=torch.bool, device=pos.device)
     new_state = SimState(pos=pos, occ=occ, sweep=state.sweep + 1,
                          overflow=state.overflow | ovf)
-    return new_state, SweepMetrics(n_acc, n_prop, ovf)
+    return new_state, SweepMetrics(de, n_acc, n_prop, ovf)
 
 
 def run_sweeps(cfg: SimConfig, pot: Potential, state: SimState,
@@ -116,20 +117,31 @@ def cell_pairs(cfg: SimConfig, pos: torch.Tensor, occ: torch.Tensor,
 
 
 def total_interaction_cells(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
-                            occ: torch.Tensor
+                            occ: torch.Tensor, dtype: torch.dtype = torch.float32
                             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(total energy, any hard-core overlap) via cell lists, in float32.
+    """(total energy, any hard-core overlap) via cell lists.
 
     E = 1/2 sum_i sum_{j in ring(i), j != i} e_ij; O(N * 3^dim * nmax), so
-    it runs at a million particles.
+    it runs at a million particles. In float32 this is the JAX package's
+    computation; ``dtype=torch.float64`` differences the stored float32
+    coordinates, evaluates the pair terms and sums in float64, so a total
+    over a million particles is not limited by float32.
     """
-    total = torch.zeros((), dtype=torch.float32, device=pos.device)
+    total = torch.zeros((), dtype=dtype, device=pos.device)
     any_ov = torch.zeros((), dtype=torch.bool, device=pos.device)
-    for r2, valid in cell_pairs(cfg, pos, occ):
+    for r2, valid in cell_pairs(cfg, pos, occ, dtype):
         e, ov = pair_interaction(pot, r2, valid)
         total = total + 0.5 * e.sum()
         any_ov = any_ov | ov.any()
     return total, any_ov
+
+
+def total_energy_cells(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
+                       occ: torch.Tensor, dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
+    """Total energy via cell lists (``total_interaction_cells``): the anchor
+    that the summed dE of a run is held against."""
+    return total_interaction_cells(cfg, pot, pos, occ, dtype)[0]
 
 
 def min_pair_distance(cfg: SimConfig, pos: torch.Tensor, occ: torch.Tensor

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Where a sweep of the port's main path spends its time, on one GPU.
 
-    python3 scripts/profile_torch_sweep.py [--moves 64 8] [--sweeps 10]
+    python3 scripts/profile_torch_sweep.py [--workload {hard-disk,lj3d}]
+                                           [--moves 64 8] [--sweeps 10]
 
-For each n_moves: builds the headline hard-disk system (N = 1,048,576,
-phi 0.5, nmax 7), warms up, then over ``--sweeps`` sweeps measures
+For each n_moves: builds the workload's system, as ``mcjax_torch.bench``
+does (hard-disk: N = 1,048,576, phi 0.5, nmax 7, n_moves 64 and 8 by
+default; lj3d: N = 1,000,000, rho 0.8, nmax 24, n_moves 60 by default, from
+the stratified start), warms up, then over ``--sweeps`` sweeps measures
   * wall ms per sweep (host clock around work that ends in a synchronize),
   * host ms per sweep to enqueue the work (host clock, no synchronize),
   * device busy ms per sweep and kernel time by name (torch.profiler),
@@ -31,8 +34,13 @@ from mcjax_torch.ops.random import TorchRandoms  # noqa: E402
 from mcjax_torch.ops.sweep import run_sweeps  # noqa: E402
 
 
-def measure(n_moves: int, sweeps: int) -> dict:
-    cfg, pot, st = bench.build(1 << 20, 0.5, 2.0, 7, n_moves, device="cuda")
+def measure(workload: str, n_moves: int, sweeps: int) -> dict:
+    if workload == "lj3d":
+        cfg, pot, st = bench.build_lj3d(1_000_000, 24, n_moves,
+                                        device="cuda")
+    else:
+        cfg, pot, st = bench.build(1 << 20, 0.5, 2.0, 7, n_moves,
+                                   device="cuda")
     rnd = TorchRandoms(torch.Generator("cuda").manual_seed(0))
     st, _ = run_sweeps(cfg, pot, st, sweeps, rnd)
     torch.cuda.synchronize()
@@ -56,6 +64,7 @@ def measure(n_moves: int, sweeps: int) -> dict:
     wall_ms = 1e3 * t_wall / sweeps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
+        "workload": workload,
         "n_moves": n_moves,
         "wall_ms_per_sweep": wall_ms,
         "enqueue_ms_per_sweep": 1e3 * t_enqueue / sweeps,
@@ -67,7 +76,10 @@ def measure(n_moves: int, sweeps: int) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--moves", type=int, nargs="+", default=[64, 8])
+    ap.add_argument("--workload", choices=("hard-disk", "lj3d"),
+                    default="hard-disk")
+    ap.add_argument("--moves", type=int, nargs="+", default=None,
+                    help="64 8 (hard-disk) / 60 (lj3d)")
     ap.add_argument("--sweeps", type=int, default=10)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -75,8 +87,9 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
-    for n_moves in args.moves:
-        res = measure(n_moves, args.sweeps)
+    moves = args.moves or ([60] if args.workload == "lj3d" else [64, 8])
+    for n_moves in moves:
+        res = measure(args.workload, n_moves, args.sweeps)
         res["card"] = smi
         print(json.dumps(res))
 

@@ -33,7 +33,13 @@ def one_thread():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, mcjax_torch, mcjax_torch.bench; "
+    """Every module of the port imports without JAX or the JAX package."""
+    code = ("import importlib, pkgutil, sys, mcjax_torch; "
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "mcjax_torch.__path__, 'mcjax_torch.')]; "
+            "[importlib.import_module(m) for m in mods]; "
+            "assert {'mcjax_torch.bench', 'mcjax_torch.ops.cuda_substep', "
+            "'mcjax_torch.ops.cuda_shift'} <= set(mods), mods; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'mcjax')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -78,6 +84,40 @@ def test_wrappers_check_their_inputs():
         cuda_shift.shift(CFG, st.pos.transpose(3, 4), st.occ, axis, d)
     with pytest.raises(ValueError, match="d"):
         cuda_shift.shift(CFG, st.pos, st.occ, axis, d.double())
+
+
+def test_substep_raises_where_no_kernel_runs():
+    """On a device other than the CPU the wrapper never runs the plain
+    version: a configuration no kernel covers raises before anything else
+    (here on the meta device, which has no kernels at all)."""
+    meta = torch.device("meta")
+    lj = mt.LennardJones(r_cut=1.0)
+    cases = [(CFG, lj), (CFG.replace(dim=3, cells_per_side=4), POT),
+             (CFG.replace(nmax=17), POT),
+             (CFG.replace(dim=3, cells_per_side=4, nmax=33), lj)]
+    for cfg, pot in cases:
+        bs = cfg.block_shape
+        args = [torch.empty((cfg.n_colors, cfg.dim, cfg.nmax, *bs),
+                            device=meta),
+                torch.empty((cfg.n_colors, *bs), dtype=torch.int32,
+                            device=meta),
+                torch.empty((cfg.n_colors,), dtype=torch.int32, device=meta),
+                0,
+                torch.empty((cfg.n_moves, *bs), device=meta),
+                torch.empty((cfg.n_moves, cfg.dim, *bs), device=meta),
+                torch.empty((cfg.n_moves, *bs), device=meta)]
+        with pytest.raises(NotImplementedError, match="kernel"):
+            cuda_substep.substep(cfg, pot, *args)
+    cfg3 = CFG.replace(dim=3, cells_per_side=4, nmax=24)
+    assert cuda_substep.kernel_library(cfg3, lj) is cuda_substep.LIB_LJ
+    assert cuda_substep.kernel_library(CFG, POT) is cuda_substep.LIB
+    st = mt.init_state(CFG, device="cpu")
+    perm, _, _ = TorchRandoms(torch.Generator().manual_seed(0)).schedule(
+        CFG, 0)
+    pick_u, disp, _ = TorchRandoms(torch.Generator()).substep(CFG, 0, 0,
+                                                              False)
+    with pytest.raises(ValueError, match="acceptance"):
+        cuda_substep.substep(CFG, lj, st.pos, st.occ, perm, 0, pick_u, disp)
 
 
 def test_torch_randoms_shapes_and_seed():

@@ -173,11 +173,11 @@ def test_color_substep_bitwise(steps, randoms_fn, i):
     np.testing.assert_array_equal(t_perm.numpy(), perm)
     for j in range(i + 1):
         pick_u, disp, _ = provider.substep(CFG, tst.sweep, j, False)
-        acc, prop = cuda_substep.substep(CFG, POT, tst.pos, tst.occ, t_perm, j,
-                                         pick_u, disp)
+        de, acc, prop = cuda_substep.substep(CFG, POT, tst.pos, tst.occ,
+                                             t_perm, j, pick_u, disp)
     assert_bitwise(tst.pos, pos_steps[i])
     assert int(acc) == int(accs[i]) and int(prop) == int(props[i])
-    assert 0 < int(acc) < int(prop)
+    assert 0 < int(acc) < int(prop) and float(de) == 0.0
 
 
 def test_sweep_shift_bitwise(steps, randoms_fn):
@@ -197,11 +197,14 @@ BIG = mt.SimConfig(**{**KW, "n_atoms": 1 << 20,
                       "cells_per_side": 640})
 
 
-@pytest.mark.parametrize("site", ["r2_own", "r2_nbr", "lower_bound"])
+@pytest.mark.parametrize("site", ["r2_own", "r2_nbr", "lower_bound",
+                                  "r2_own_3d", "r2_nbr_3d"])
 def test_contraction_sites_match_xla(site):
-    """The two places where XLA on the CPU fuses a multiply into an add
-    (squared distance, cell lower bound) and the port's fma_f32 agree bit
-    for bit, on data where rounding the product separately differs."""
+    """The places where XLA on the CPU fuses a multiply into an add (squared
+    distance in 2D and 3D, cell lower bound) and the port's fma_f32 agree
+    bit for bit, on data where rounding the products separately differs.
+    (The Lennard-Jones bracket's site is held by
+    test_torch_lj3d.py::test_lj_pair_energy_bitwise.)"""
     if site == "lower_bound":
         # mcjax/ops/sweep.py:74 at the 1M geometry, the cell index traced
         # (a constant index lets XLA fold the bounds without contracting)
@@ -216,13 +219,18 @@ def test_contraction_sites_match_xla(site):
             for c in range(4)]).numpy()
         separate = ck.astype(np.float32) * np.float32(w) - np.float32(half)
     else:
-        shape, axis = ((2, 7, 64, 64), 0) if site == "r2_own" else \
-            ((8, 2, 7, 64, 64), 1)
+        # the shapes of the sub-step's own-cell and neighbor differences
+        shape, axis = {"r2_own": ((2, 7, 64, 64), 0),
+                       "r2_nbr": ((8, 2, 7, 64, 64), 1),
+                       "r2_own_3d": ((3, 24, 8, 8, 8), 0),
+                       "r2_nbr_3d": ((26, 3, 24, 8, 8, 8), 1)}[site]
         d = np.random.default_rng(11).uniform(-2.0, 2.0, shape).astype(
             np.float32)
         want = np.asarray(jax.jit(lambda x: jnp.sum(x * x, axis=axis))(d))
         got = cuda_substep.squared_norm(torch.from_numpy(d), axis).numpy()
         sq = d * d
         separate = sq.take(0, axis) + sq.take(1, axis)
+        if shape[axis] == 3:
+            separate = separate + sq.take(2, axis)
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
     assert np.count_nonzero(separate != want) > 0.01 * want.size
