@@ -1,12 +1,13 @@
 """mcjax_torch: the PyTorch / CUDA port of mcjax for NVIDIA Hopper.
 
 Checkerboard-decomposed, cell-list Metropolis Monte Carlo on color-blocked
-slabs, with the JAX package's state layout: 2D hard disks and 3D
-Lennard-Jones so far. Each color sub-step and each grid shift runs as a
-hand-written CUDA kernel on the card; on the CPU the same entry points run
-plain PyTorch versions that match the JAX package (bit for bit for hard
-disks; for Lennard-Jones bit for bit up to accept decisions at a near tie,
-since dE is summed in another order). Entry points run on CUDA unless the
+slabs, with the JAX package's state layout: 2D hard disks, 3D Lennard-Jones
+and 3D binary Lennard-Jones mixtures (Kob-Andersen) so far. Each color
+sub-step and each grid shift runs as a hand-written CUDA kernel on the
+card; on the CPU the same entry points run plain PyTorch versions that
+match the JAX package (bit for bit for hard disks; for the energetic models
+bit for bit up to accept decisions at a near tie, since dE is summed in
+another order). Entry points run on CUDA unless the
 caller passes ``device="cpu"``.
 
 This package imports torch, numpy and the standard library only.
@@ -15,7 +16,9 @@ This package imports torch, numpy and the standard library only.
 from mcjax_torch.convert import state_from_numpy, state_to_numpy
 from mcjax_torch.core.config import SimConfig
 from mcjax_torch.core.state import SimState, init_state, zeros_state
+from mcjax_torch.models.mixtures import LJMixture, kob_andersen
 from mcjax_torch.models.potentials import HardSphere, LennardJones
+from mcjax_torch.ops.mixture import init_mixture_state, unbin_mixture
 from mcjax_torch.ops.random import RandomProvider, TorchRandoms
 from mcjax_torch.ops.sweep import (SweepMetrics, mc_sweep, run_sweeps,
                                    total_energy_cells)
@@ -25,6 +28,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "HardSphere",
+    "LJMixture",
     "LennardJones",
     "RandomProvider",
     "SimConfig",
@@ -32,12 +36,15 @@ __all__ = [
     "StateInvariantError",
     "SweepMetrics",
     "TorchRandoms",
+    "init_mixture_state",
     "init_state",
+    "kob_andersen",
     "mc_sweep",
     "run_sweeps",
     "state_from_numpy",
     "state_to_numpy",
     "total_energy_cells",
+    "unbin_mixture",
     "validate_state",
     "zeros_state",
 ]

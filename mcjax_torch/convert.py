@@ -3,7 +3,7 @@
 ``state_from_numpy(np.asarray(s.pos), np.asarray(s.occ), s.sweep,
 s.overflow)`` takes an ``mcjax`` SimState across; ``state_to_numpy`` gives
 the same four arrays back. Both packages share the slab layout, so nothing
-is reordered.
+is reordered; a mixture state's species plane comes across as it is.
 """
 
 from __future__ import annotations

@@ -5,16 +5,19 @@
 // the packed layout): both compute mcjax/ops/cells.py::shift_rebin. Plain
 // version: mcjax_torch/ops/cells.py::shift_rebin.
 //
-// Every coordinate on the shift axis moves x -> wrap(x - d) (every plane goes
-// through the wrap, as in the JAX package); since |d| <= w/2 a particle stays
+// Every coordinate on the shift axis moves x -> wrap(x - d) (every coordinate
+// plane goes through the wrap, as in the JAX package; attribute planes after
+// the DIM coordinate planes, such as a mixture's species id, move with their
+// slot untouched, as in ring_shift); since |d| <= w/2 a particle stays
 // in its cell or moves one cell opposite the shift, so each destination
 // cell's new slab is its own slab merged with one donor neighbor's slab. A
 // coordinate that stays in its cell is never carried across the periodic
 // seam (seam_guard below); otherwise this is the JAX package's arithmetic.
 //
 // Layout (the JAX package's color-blocked slab, B cells per side of a color
-// block, P = B^DIM cells per color, 2^DIM colors):
-//   pos[color, DIM, nmax, B, ..., B] f32, occ[color, B, ..., B] i32.
+// block, P = B^DIM cells per color, 2^DIM colors, NP planes: the DIM
+// coordinates, then NP - DIM = 0 or 1 attribute planes):
+//   pos[color, NP, nmax, B, ..., B] f32, occ[color, B, ..., B] i32.
 //
 // Design. One thread per destination cell over all colors. The axis and d
 // are read from device memory, so the host never waits. Candidates are
@@ -29,7 +32,8 @@
 //
 // Bound. Each slot is read once and written once: device-memory bandwidth
 // bounds the kernel (2 x 23 MB for 2D disks at N = 1,048,576, nmax 7;
-// 2 x 21 MB for 3D LJ at N = 1,000,000, nmax 24).
+// 2 x 21 MB for 3D LJ at N = 1,000,000, nmax 24; 2 x 25 MB for the
+// Kob-Andersen mixture at N = 1,000,000, nmax 34, 4 planes).
 
 #include <cuda_runtime.h>
 
@@ -63,7 +67,9 @@ __device__ __forceinline__ float seam_guard(float wrapped, float x,
   return __fadd_rn(wrapped, x > 0.f ? box_l : -box_l);
 }
 
-template <int DIM>
+// The plane count is a template parameter: a runtime count leaves the plane
+// loops rolled, which slowed the single-species shifts.
+template <int DIM, int NP>
 __global__ void __launch_bounds__(128)
 shift_kernel(const float* __restrict__ pos, const int* __restrict__ occ,
              float* __restrict__ pos_out, int* __restrict__ occ_out,
@@ -106,7 +112,7 @@ shift_kernel(const float* __restrict__ pos, const int* __restrict__ occ,
   const int recv_k = pmod(my_k - donor_dir, cps);
 
   const size_t plane = static_cast<size_t>(nmax) * P;
-  const size_t cstride = DIM * plane;
+  const size_t cstride = NP * plane;
   const float* own = pos + color * cstride + cell;
   const float* don = pos + src * cstride + don_cell;
   const int own_n = occ[gid];
@@ -141,28 +147,44 @@ shift_kernel(const float* __restrict__ pos, const int* __restrict__ occ,
           out[k * plane + count * P] =
               moves ? wr[k] : seam_guard(wr[k], x[k], half_l, box_l);
         }
+#pragma unroll
+        for (int k = DIM; k < NP; ++k) {
+          out[k * plane + count * P] = c[k * plane + slot * P];
+        }
       }
       ++count;
     }
   }
   for (int slot = count; slot < nmax; ++slot) {
 #pragma unroll
-    for (int k = 0; k < DIM; ++k) out[k * plane + slot * P] = 0.f;
+    for (int k = 0; k < NP; ++k) out[k * plane + slot * P] = 0.f;
   }
   occ_out[gid] = min(count, nmax);
   if (count > nmax) atomicOr(overflow, 1);
 }
 
-}  // namespace
-
-extern "C" int mcjax_shift(void* pos, void* occ, void* pos_out, void* occ_out,
-                           void* overflow, void* axis, void* d, int dim,
-                           int B, int nmax, int cps, float box_l,
-                           float half_l, float inv_w, void* stream) {
+template <int DIM, int NP>
+void launch(const float* pos, const int* occ, float* pos_out, int* occ_out,
+            int* overflow, const int* axis, const float* d, int B, int nmax,
+            int cps, float box_l, float half_l, float inv_w,
+            cudaStream_t stream) {
   const int threads = 128;
   int cells = 1;
-  for (int k = 0; k < dim; ++k) cells *= 2 * B;  // all colors
+  for (int k = 0; k < DIM; ++k) cells *= 2 * B;  // all colors
   const int blocks = (cells + threads - 1) / threads;
+  shift_kernel<DIM, NP><<<blocks, threads, 0, stream>>>(
+      pos, occ, pos_out, occ_out, overflow, axis, d, B, nmax, cps, box_l,
+      half_l, inv_w);
+}
+
+}  // namespace
+
+// n_planes: dim coordinate planes, or dim + 1 with an attribute plane.
+extern "C" int mcjax_shift(void* pos, void* occ, void* pos_out, void* occ_out,
+                           void* overflow, void* axis, void* d, int dim,
+                           int B, int nmax, int n_planes, int cps,
+                           float box_l, float half_l, float inv_w,
+                           void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* p = static_cast<const float*>(pos);
   auto* o = static_cast<const int*>(occ);
@@ -171,14 +193,19 @@ extern "C" int mcjax_shift(void* pos, void* occ, void* pos_out, void* occ_out,
   auto* ov = static_cast<int*>(overflow);
   auto* ax = static_cast<const int*>(axis);
   auto* dd = static_cast<const float*>(d);
-  if (dim == 2) {
-    shift_kernel<2><<<blocks, threads, 0, s>>>(p, o, po, oo, ov, ax, dd, B,
-                                               nmax, cps, box_l, half_l,
-                                               inv_w);
-  } else if (dim == 3) {
-    shift_kernel<3><<<blocks, threads, 0, s>>>(p, o, po, oo, ov, ax, dd, B,
-                                               nmax, cps, box_l, half_l,
-                                               inv_w);
+  const int extra = n_planes - dim;
+  if (dim == 2 && extra == 0) {
+    launch<2, 2>(p, o, po, oo, ov, ax, dd, B, nmax, cps, box_l, half_l,
+                 inv_w, s);
+  } else if (dim == 2 && extra == 1) {
+    launch<2, 3>(p, o, po, oo, ov, ax, dd, B, nmax, cps, box_l, half_l,
+                 inv_w, s);
+  } else if (dim == 3 && extra == 0) {
+    launch<3, 3>(p, o, po, oo, ov, ax, dd, B, nmax, cps, box_l, half_l,
+                 inv_w, s);
+  } else if (dim == 3 && extra == 1) {
+    launch<3, 4>(p, o, po, oo, ov, ax, dd, B, nmax, cps, box_l, half_l,
+                 inv_w, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

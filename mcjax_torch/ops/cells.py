@@ -153,27 +153,33 @@ def _flat_slot(cfg: SimConfig, c: torch.Tensor) -> torch.Tensor:
     return color * cfg.cells_per_color + blk
 
 
-def bin_particles(cfg: SimConfig, positions: torch.Tensor
+def bin_particles(cfg: SimConfig, positions: torch.Tensor,
+                  extra: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Scatter [N, dim] positions into color-blocked slabs.
 
     Stable sort by cell, rank within the cell, scatter; particles ranked
-    beyond nmax are dropped and raise the overflow flag.
+    beyond nmax are dropped and raise the overflow flag. ``extra`` ([N, E]
+    float) appends E per-particle attribute planes after the coordinates
+    (a mixture's species id), which ride with their slot through every
+    shift and neighbor read.
 
     Returns:
-      pos [ncolors, dim, nmax, *bs] f32, occ [ncolors, *bs] i32, overflow
-      (0-d bool tensor).
+      pos [ncolors, dim (+E), nmax, *bs] f32, occ [ncolors, *bs] i32,
+      overflow (0-d bool tensor).
     """
     dev = positions.device
     n = positions.shape[0]
     positions = wrap_into_box(positions.to(torch.float32), cfg.box_length)
     g = _flat_slot(cfg, cell_coords(cfg, positions))
     n_slots = cfg.n_colors * cfg.cells_per_color
-    n_planes = positions.shape[1]
+    data = positions if extra is None else torch.cat(
+        [positions, extra.to(device=dev, dtype=torch.float32)], dim=1)
+    n_planes = data.shape[1]
 
     order = torch.argsort(g, stable=True)
     g_sorted = g[order]
-    data_sorted = positions[order]
+    data_sorted = data[order]
     first = torch.searchsorted(g_sorted, g_sorted, side="left")
     rank = torch.arange(n, device=dev) - first
     keep = rank < cfg.nmax
@@ -193,7 +199,8 @@ def bin_particles(cfg: SimConfig, positions: torch.Tensor
 
 def unbin(cfg: SimConfig, pos: torch.Tensor, occ: torch.Tensor,
           n_out: int | None = None) -> torch.Tensor:
-    """Flatten slabs back to [n_out, dim] in deterministic slot order."""
+    """Flatten slabs back to [n_out, dim (+E)] in deterministic slot order;
+    attribute planes come back as trailing columns."""
     if n_out is None:
         n_out = cfg.n_atoms
     n_planes = pos.shape[1]
@@ -214,10 +221,11 @@ def neighbor_stack(cfg: SimConfig, pos: torch.Tensor, occ: torch.Tensor,
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """All 3^dim - 1 neighbor slabs of every active cell of ``color``.
 
-    Returns nbr_pos [K, dim, nmax, *bs] and nbr_occ [K, *bs], K = 3^dim - 1,
-    in ``neighbor_plan`` order. With ``unwrap``, coordinate plane k of a
-    read whose block shift wrapped around the box gets ±L added (an f32 add,
-    as in the JAX package), so pair loops need no minimum image.
+    Returns nbr_pos [K, planes, nmax, *bs] and nbr_occ [K, *bs],
+    K = 3^dim - 1, in ``neighbor_plan`` order. With ``unwrap``, coordinate
+    plane k < dim of a read whose block shift wrapped around the box gets
+    ±L added (an f32 add, as in the JAX package), so pair loops need no
+    minimum image; attribute planes are read as they are.
     """
     dim = cfg.dim
     half = cfg.half_cps
@@ -252,34 +260,38 @@ def _shift_rebin_axis(cfg: SimConfig, axis: int, pos: torch.Tensor,
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Grid shift along ``axis`` by d in (-w/2, w/2] (packed merge).
 
-    Every coordinate moves x_axis -> wrap(x_axis - d) (all planes go through
-    the wrap, as in the JAX package); each cell's new slab is its own slab
-    merged with one donor neighbor's slab, in candidate order own 0..nmax-1
-    then donor 0..nmax-1. The receiver claims a donor candidate on exact
-    floor equality; the owner keeps what the receiver does not claim.
-    Binning multiplies by the f32 reciprocal of w. Unlike the JAX package,
-    a coordinate that stays in its cell is never carried across the
-    periodic seam (see the seam guard below); otherwise the result is the
-    JAX package's bit for bit.
+    Every coordinate moves x_axis -> wrap(x_axis - d) (all coordinate planes
+    go through the wrap, as in the JAX package); each cell's new slab is its
+    own slab merged with one donor neighbor's slab, in candidate order own
+    0..nmax-1 then donor 0..nmax-1. The receiver claims a donor candidate on
+    exact floor equality; the owner keeps what the receiver does not claim.
+    Binning multiplies by the f32 reciprocal of w. Attribute planes (every
+    plane after the first dim, a mixture's species id) move with their slot
+    untouched. Unlike the JAX package, a coordinate that stays in its cell
+    is never carried across the periodic seam (see the seam guard below);
+    otherwise the result is the JAX package's bit for bit.
     """
     w = cfg.cell_width
     dim, nmax = cfg.dim, cfg.nmax
+    n_planes = pos.shape[1]
     dev = pos.device
     donor_dir = 1 if bool(d > 0) else -1
 
-    moved = pos.clone()
-    moved[:, axis] = pos[:, axis] - d
+    coords = pos[:, :dim]
+    moved = coords.clone()
+    moved[:, axis] = coords[:, axis] - d
     wrapped = wrap_into_box(moved, cfg.box_length)
     # Seam guard, the port's one departure from the JAX package: a slot at
     # (or an ulp past) +L/2 wraps to -L/2, the far side of the box, while it
-    # stays in its cell (every plane goes through the wrap; on the shift
-    # axis the owner keeps what the receiver does not claim). Neighbor reads
-    # then unwrap it the wrong way and overlap tests miss it. So a
-    # coordinate that stays in its cell is never carried across the seam:
-    # a jump of more than L/2 is undone by adding back +-L.
-    jumped = (wrapped - pos).abs() > cfg.box_length / 2.0
-    back = torch.where(pos > 0, cfg.box_length, -cfg.box_length)
-    stays = torch.where(jumped, wrapped + back, wrapped)
+    # stays in its cell (every coordinate plane goes through the wrap; on
+    # the shift axis the owner keeps what the receiver does not claim).
+    # Neighbor reads then unwrap it the wrong way and overlap tests miss it.
+    # So a coordinate that stays in its cell is never carried across the
+    # seam: a jump of more than L/2 is undone by adding back +-L.
+    jumped = (wrapped - coords).abs() > cfg.box_length / 2.0
+    back = torch.where(coords > 0, cfg.box_length, -cfg.box_length)
+    stays = torch.cat([torch.where(jumped, wrapped + back, wrapped),
+                       pos[:, dim:]], dim=1)
 
     bs = tuple(occ.shape[1:])
     slot = torch.arange(nmax, device=dev).reshape((nmax,) + (1,) * dim)
@@ -294,16 +306,16 @@ def _shift_rebin_axis(cfg: SimConfig, axis: int, pos: torch.Tensor,
         src_color = color ^ (1 << axis)  # parity flips along `axis`
         shifts = [0] * dim
         shifts[axis] = t >> 1
-        # own slots are stored seam-guarded on every plane; donor slots on
-        # every plane but the shift axis, where they really cross cells.
-        # Binning reads the wrapped shift-axis coordinate of both.
+        # own slots are stored seam-guarded on every coordinate plane; donor
+        # slots on every one but the shift axis, where they really cross
+        # cells. Binning reads the wrapped shift-axis coordinate of both.
         donp = stays[src_color].clone()
         donp[axis] = wrapped[src_color, axis]
         donp = roll_shift(donp, tuple(shifts))
         own_o = occ[color]
         don_o = roll_shift(occ[src_color], tuple(shifts))
 
-        cand = torch.cat([stays[color], donp], dim=1)  # [dim, 2nmax, *bs]
+        cand = torch.cat([stays[color], donp], dim=1)  # [planes, 2nmax, *bs]
         cand_valid = torch.cat([slot < own_o[None], slot < don_o[None]], dim=0)
         xk = torch.cat([wrapped[color, axis], donp[axis]])   # [2nmax, *bs]
         cell_k = torch.floor((xk + cfg.box_length / 2.0) * inv_w).to(torch.int32)
@@ -315,7 +327,8 @@ def _shift_rebin_axis(cfg: SimConfig, axis: int, pos: torch.Tensor,
 
         csum = torch.cumsum(belongs.to(torch.int32), dim=0)
         dest = csum - 1
-        out = torch.zeros((dim, nmax) + bs, dtype=cand.dtype, device=dev)
+        out = torch.zeros((n_planes, nmax) + bs, dtype=cand.dtype,
+                          device=dev)
         for j in range(2 * nmax):
             hit = belongs[j][None] & (dest[j][None] == slot)   # [nmax, *bs]
             out = torch.where(hit[None], cand[:, j][:, None], out)

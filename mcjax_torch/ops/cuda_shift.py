@@ -4,7 +4,9 @@ The kernel (``csrc/shift.cu``, 2D and 3D) replaces the TPU kernels
 ``mcjax/ops/pallas_ring.py::ring_shift`` and
 ``mcjax/ops/pallas_shift.py::pallas_shift_rebin``: shift every coordinate on
 one axis, re-bin, merge each cell's own slab with its donor neighbor's slab
-in a fixed candidate order and compact to nmax. Its plain version is
+in a fixed candidate order and compact to nmax. Attribute planes after the
+dim coordinate planes (a mixture's species id) move with their slot, as in
+``ring_shift``. Its plain version is
 ``mcjax_torch.ops.cells.shift_rebin`` (imported here as ``shift_rebin``).
 """
 
@@ -24,7 +26,7 @@ LIB = CudaLibrary("shift", {
     "mcjax_shift": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_void_p],
 })
@@ -37,14 +39,20 @@ def shift(cfg: SimConfig, pos: torch.Tensor, occ: torch.Tensor,
           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Grid shift along ``axis`` (int32 0-d) by ``d`` (float32 0-d).
 
-    Returns (pos, occ, overflow) in new buffers; overflow is a 0-d bool
-    tensor. On a CPU tensor this runs the plain version; on a CUDA tensor it
-    launches the kernel, which reads axis and d from device memory (no host
-    sync).
+    ``pos`` holds dim coordinate planes and at most one attribute plane
+    after them (a mixture's species id). Returns (pos, occ, overflow) in
+    new buffers; overflow is a 0-d bool tensor. On a CPU tensor this runs
+    the plain version; on a CUDA tensor it launches the kernel, which reads
+    axis and d from device memory (no host sync).
     """
     bs = cfg.block_shape
+    n_planes = pos.shape[1] if pos.dim() > 1 else 0
+    if n_planes not in (cfg.dim, cfg.dim + 1):
+        raise ValueError(f"pos: want {cfg.dim} coordinate planes and at most"
+                         f" one attribute plane, got shape "
+                         f"{tuple(pos.shape)}")
     want = {
-        "pos": (pos, torch.float32, (cfg.n_colors, cfg.dim, cfg.nmax, *bs)),
+        "pos": (pos, torch.float32, (cfg.n_colors, n_planes, cfg.nmax, *bs)),
         "occ": (occ, torch.int32, (cfg.n_colors, *bs)),
         "axis": (axis, torch.int32, ()),
         "d": (d, torch.float32, ()),
@@ -71,7 +79,7 @@ def launch_kernel(cfg: SimConfig, pos: torch.Tensor, occ: torch.Tensor,
         "mcjax_shift",
         pos.data_ptr(), occ.data_ptr(), pos_out.data_ptr(), occ_out.data_ptr(),
         ovf.data_ptr(), axis.data_ptr(), d.data_ptr(),
-        cfg.dim, cfg.half_cps, cfg.nmax, cfg.cells_per_side,
+        cfg.dim, cfg.half_cps, cfg.nmax, pos.shape[1], cfg.cells_per_side,
         cfg.box_length, cfg.box_length / 2.0,
         float(np.float32(1.0 / cfg.cell_width)),
         torch.cuda.current_stream(pos.device).cuda_stream)

@@ -1,7 +1,10 @@
 """Checkerboard Metropolis sweep engine (twin of ``mcjax.ops.sweep``).
 
 One sweep runs the 2^dim color sub-steps in the provider's shuffled order,
-then one random grid shift. On CUDA every sub-step and every shift is one
+then one random grid shift. A mixture state (a species plane after the
+coordinates) runs through the same loop: ``cuda_substep.substep`` picks the
+mixture sub-step, as the JAX package's ``mc_sweep`` picks
+``color_substep_mixture``, and the shift carries the species plane. On CUDA every sub-step and every shift is one
 launch of a hand-written kernel (``cuda_substep``, ``cuda_shift``); on the
 CPU the same wrappers run their plain PyTorch versions.
 
@@ -20,7 +23,7 @@ from mcjax_torch.core.config import SimConfig
 from mcjax_torch.core.geometry import min_image
 from mcjax_torch.core.state import SimState
 from mcjax_torch.models.potentials import Potential, pair_interaction
-from mcjax_torch.ops import cells, cuda_shift, cuda_substep
+from mcjax_torch.ops import cells, cuda_shift, cuda_substep, mixture
 from mcjax_torch.ops.cuda_substep import color_substep
 from mcjax_torch.ops.random import RandomProvider
 
@@ -89,13 +92,14 @@ def cell_pairs(cfg: SimConfig, pos: torch.Tensor, occ: torch.Tensor,
 
     Yields (r2, valid) blocks, one intra-cell and one cross-cell block per
     color: minimum-image squared distances computed in ``dtype`` and the
-    mask of pairs of live, distinct slots. Each pair appears twice.
+    mask of pairs of live, distinct slots. Each pair appears twice. Only
+    the coordinate planes are read (a mixture's species plane is not).
     """
-    nmax = cfg.nmax
+    nmax, dim = cfg.nmax, cfg.dim
     dev = pos.device
     box = float(torch.tensor(cfg.box_length, dtype=torch.float32))
     for color in range(cfg.n_colors):
-        own = pos[color].to(dtype)                         # [dim, nmax, *bs]
+        own = pos[color, :dim].to(dtype)                   # [dim, nmax, *bs]
         own_occ = occ[color]                               # [*bs]
         bs = tuple(own_occ.shape)
         slot = torch.arange(nmax, device=dev).reshape((nmax,) + (1,) * len(bs))
@@ -110,8 +114,8 @@ def cell_pairs(cfg: SimConfig, pos: torch.Tensor, occ: torch.Tensor,
         nbr_pos, nbr_occ = cells.neighbor_stack(
             cfg, pos, occ, color, unwrap=dtype == torch.float32)
         valid_j = slot[None] < nbr_occ[:, None]            # [K, nmax, *bs]
-        dx = min_image(own[None, :, :, None] - nbr_pos.to(dtype)[:, :, None, :],
-                       box)
+        dx = min_image(own[None, :, :, None]
+                       - nbr_pos[:, :dim].to(dtype)[:, :, None, :], box)
         yield ((dx * dx).sum(dim=1),                       # [K, nmax, nmax, *bs]
                valid_i[None, :, None] & valid_j[:, None, :])
 
@@ -139,8 +143,12 @@ def total_interaction_cells(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
 def total_energy_cells(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
                        occ: torch.Tensor, dtype: torch.dtype = torch.float32
                        ) -> torch.Tensor:
-    """Total energy via cell lists (``total_interaction_cells``): the anchor
+    """Total energy via cell lists (``total_interaction_cells``, or
+    ``mixture.total_interaction_cells_mixture`` for a mixture): the anchor
     that the summed dE of a run is held against."""
+    if getattr(pot, "is_mixture", False):
+        return mixture.total_interaction_cells_mixture(cfg, pot, pos, occ,
+                                                       dtype)[0]
     return total_interaction_cells(cfg, pot, pos, occ, dtype)[0]
 
 

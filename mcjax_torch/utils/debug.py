@@ -23,7 +23,9 @@ class StateInvariantError(AssertionError):
 
 def validate_state(cfg: SimConfig, state: SimState,
                    pot: Potential | None = None,
-                   expect_atoms: int | None = None) -> dict[str, float]:
+                   expect_atoms: int | None = None,
+                   expect_species: list[int] | None = None
+                   ) -> dict[str, float]:
     """Check every structural invariant of a SimState; raise on violation.
 
     1. occupancy in [0, nmax] and the total matches n_atoms;
@@ -31,7 +33,14 @@ def validate_state(cfg: SimConfig, state: SimState,
     3. every live slot lies inside its cell's exact bounds, up to a slack;
     4. coordinates are inside the box, up to the same slack;
     5. (optional, hard-core models) no two particles closer than the
-       diameter, up to a slack.
+       diameter, up to a slack;
+    6. (mixture states, whose pos carries a species plane after the dim
+       coordinate planes) every live species id is an integer in [0, S),
+       S from a mixture ``pot`` or from ``expect_species``, and, when
+       ``expect_species`` gives the population of each id, the counts match
+       it.
+
+    Checks 3 and 4 read the coordinate planes only.
 
     The slacks are set by float32 resolution, which at a million particles
     is coarse: coordinates are box-frame float32 in [-L/2, L/2), and at
@@ -95,6 +104,9 @@ def validate_state(cfg: SimConfig, state: SimState,
                     f"cell bounds along axis {k} (worst {excursion:.2f} "
                     f"ulps of L/2 = {ulp:.3g})")
 
+    if pos.shape[1] > cfg.dim:
+        _check_species(cfg, pos, occ, pot, expect_species)
+
     depth = 0.0
     if pot is not None and pot.has_hard_core:
         depth = max(0.0, pot.r_cut - min_pair_distance(cfg, pos, occ)) / ulp
@@ -102,3 +114,31 @@ def validate_state(cfg: SimConfig, state: SimState,
             raise StateInvariantError(
                 f"hard-core overlap {depth:.2f} ulps of L/2 = {ulp:.3g} deep")
     return {"cell_excursion_ulps": excursion, "overlap_depth_ulps": depth}
+
+
+def _check_species(cfg: SimConfig, pos: torch.Tensor, occ: torch.Tensor,
+                   pot: Potential | None,
+                   expect_species: list[int] | None) -> None:
+    """Check 6 of ``validate_state``."""
+    from mcjax_torch.ops.mixture import species_counts
+
+    if pot is not None and getattr(pot, "is_mixture", False):
+        n_species = pot.n_species
+    elif expect_species is not None:
+        n_species = len(expect_species)
+    else:
+        raise ValueError("a mixture state needs a mixture pot or "
+                         "expect_species to be checked")
+    slot = torch.arange(cfg.nmax, device=pos.device).reshape(
+        (1, cfg.nmax) + (1,) * cfg.dim)
+    spec = pos[:, cfg.dim][slot < occ[:, None]]
+    n_bad = int(((spec != torch.round(spec)) | (spec < 0)
+                 | (spec >= n_species)).sum())
+    if n_bad:
+        raise StateInvariantError(f"{n_bad} live species ids are not "
+                                  f"integers in [0, {n_species})")
+    if expect_species is not None:
+        got = species_counts(cfg, pos, occ, n_species).tolist()
+        if got != list(expect_species):
+            raise StateInvariantError(f"species populations {got} != "
+                                      f"expected {list(expect_species)}")

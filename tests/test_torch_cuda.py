@@ -13,7 +13,7 @@ import torch
 
 import mcjax_torch as mt
 from mcjax_torch import bench
-from mcjax_torch.ops import cuda_shift, cuda_substep
+from mcjax_torch.ops import cuda_shift, cuda_substep, mixture
 from mcjax_torch.ops.random import TorchRandoms
 
 pytestmark = pytest.mark.cuda
@@ -162,3 +162,39 @@ def test_shift_kernel_seam_guard_3d(cuda, seam_axis):
     assert torch.equal(got[1], want[1])
     (c, *b), = torch.nonzero(got[1]).tolist()
     assert float(got[0][(c, seam_axis, 0, *b)]) > 0
+
+
+@pytest.mark.parametrize("n,nmax", [(4500, 34), (2800, 64)])
+def test_mixture_kernel_matches_plain(cuda, n, nmax):
+    """The Kob-Andersen sub-step kernel against its plain version for all
+    8 colors (bit for bit, species plane included, outside cells where a
+    decision came within a relative 1e-5 of a tie; dE within 1e-5 relative
+    + 1e-4), and the shift kernel with the species plane bit for bit for
+    3 axes x 2 signs of d. At 2,800 atoms the cells hold about 44, so
+    both own slots of a lane are in use."""
+    cfg, pot, st = bench.build_ka3d(n, nmax, 16, device=cuda)
+    rnd = TorchRandoms(torch.Generator(cuda).manual_seed(n + nmax))
+    st, _ = mt.run_sweeps(cfg, pot, st, 2, rnd)     # leave the start
+    perm, axis, d = rnd.schedule(cfg, st.sweep)
+    for i in range(cfg.n_colors):
+        pick_u, disp, acc_u = rnd.substep(cfg, st.sweep, i, True)
+        color = int(perm[i])
+        rec = {}
+        own, de, acc, prop = mixture.color_substep_mixture(
+            cfg, pot, color, st.pos, st.occ, pick_u, disp, acc_u, rec)
+        before = cuda_substep.LIB_MIX.launches
+        k_de, k_acc, k_prop = cuda_substep.substep(
+            cfg, pot, st.pos, st.occ, perm, i, pick_u, disp, acc_u)
+        torch.cuda.synchronize()
+        assert cuda_substep.LIB_MIX.launches == before + 1
+        differs = (st.pos[color].view(torch.int32)
+                   != own.view(torch.int32)).any(dim=0).any(dim=0)
+        ties = rec["margin"] <= 1e-5
+        assert not bool((differs & ~ties).any())
+        assert int(k_prop) == int(prop)
+        if not bool(differs.any()):
+            assert int(k_acc) == int(acc)
+            assert abs(float(k_de) - float(de)) <= 1e-5 * abs(float(de)) + 1e-4
+    _shift_kernel_matches_plain(cfg, st, d)
+    n_b = n // 5
+    mt.validate_state(cfg, st, pot, expect_species=[n - n_b, n_b])

@@ -39,7 +39,8 @@ def test_import_leaves_jax_out():
             "mcjax_torch.__path__, 'mcjax_torch.')]; "
             "[importlib.import_module(m) for m in mods]; "
             "assert {'mcjax_torch.bench', 'mcjax_torch.ops.cuda_substep', "
-            "'mcjax_torch.ops.cuda_shift'} <= set(mods), mods; "
+            "'mcjax_torch.ops.cuda_shift', 'mcjax_torch.ops.mixture', "
+            "'mcjax_torch.models.mixtures'} <= set(mods), mods; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'mcjax')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -67,6 +68,9 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         mt.state_from_numpy(np.zeros((4, 2, 7, 8, 8), np.float32),
                             np.zeros((4, 8, 8), np.int32), 0, False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mt.init_mixture_state(CFG, torch.zeros((2, 2)),
+                              torch.zeros(2, dtype=torch.int32))
 
 
 def test_wrappers_check_their_inputs():

@@ -19,6 +19,7 @@ import torch
 from mcjax.core.config import SimConfig as JaxConfig
 from mcjax.core.state import SimState as JaxState
 from mcjax.core.state import init_state as jax_init_state
+from mcjax.models.mixtures import kob_andersen as jax_kob_andersen
 from mcjax.models.potentials import HardSphere as JaxHardSphere
 from mcjax.ops import cells as jcells
 from mcjax.ops import sweep as jsweep
@@ -198,13 +199,36 @@ BIG = mt.SimConfig(**{**KW, "n_atoms": 1 << 20,
 
 
 @pytest.mark.parametrize("site", ["r2_own", "r2_nbr", "lower_bound",
-                                  "r2_own_3d", "r2_nbr_3d"])
+                                  "r2_own_3d", "r2_nbr_3d", "mixture_nbr_3d"])
 def test_contraction_sites_match_xla(site):
     """The places where XLA on the CPU fuses a multiply into an add (squared
     distance in 2D and 3D, cell lower bound) and the port's fma_f32 agree
     bit for bit, on data where rounding the products separately differs.
     (The Lennard-Jones bracket's site is held by
-    test_torch_lj3d.py::test_lj_pair_energy_bitwise.)"""
+    test_torch_lj3d.py::test_lj_pair_energy_bitwise.) ``mixture_nbr_3d``
+    composes the 3D squared distance with the Kob-Andersen pair energy, as
+    the mixture sub-step does, compiled as one function: the contractions
+    stay where the port puts them when the two meet."""
+    if site == "mixture_nbr_3d":
+        rng = np.random.default_rng(12)
+        shape = (26, 3, 34, 4, 4, 4)
+        d = rng.uniform(-2.0, 2.0, shape).astype(np.float32)
+        si = np.float32(rng.integers(0, 2, shape[2:]))[None]
+        sj = np.float32(rng.integers(0, 2, (26,) + shape[2:]))
+        want = np.asarray(jax.jit(
+            lambda x, a, b: jax_kob_andersen().pair_energy_s(
+                jnp.sum(x * x, axis=1), a, b))(d, si, sj))
+        ka = mt.kob_andersen()
+        td, tsi, tsj = (torch.from_numpy(a) for a in (d, si, sj))
+        got = ka.pair_energy_s(cuda_substep.squared_norm(td, 1), tsi,
+                               tsj).numpy()
+        sq = td * td
+        separate = ka.pair_energy_s(sq[:, 0] + sq[:, 1] + sq[:, 2], tsi,
+                                    tsj).numpy()
+        np.testing.assert_array_equal(got.view(np.uint32),
+                                      want.view(np.uint32))
+        assert np.count_nonzero(separate != want) > 0.01 * want.size
+        return
     if site == "lower_bound":
         # mcjax/ops/sweep.py:74 at the 1M geometry, the cell index traced
         # (a constant index lets XLA fold the bounds without contracting)
