@@ -5,7 +5,7 @@
 
 Run from the repository root. It builds the port's CUDA kernels from
 ``mcjax_torch/csrc`` with nvcc (one nvcc per source, all started together)
-and checks two paths, each through the user's entry point
+and checks three paths, each through the user's entry point
 (``mcjax_torch.bench``):
 
 * 2D hard disks (N = 1,048,576, phi 0.5, nmax 7, n_moves 64 and 8): each
@@ -21,7 +21,11 @@ and checks two paths, each through the user's entry point
   small run through the kernels against the plain CPU path, then the main
   path (30 + 30 sweeps) with launch counts, overflow, N, ``validate_state``
   and the energy anchor (summed dE against the float64 total-energy
-  difference, within ANCHOR_REL).
+  difference, within ANCHOR_REL). For the sub-step kernel it also prints
+  its launch shape (registers, shared memory, resident warps an SM, staged
+  slots a warp), the full pair terms one sub-step evaluated beside the
+  count the bound takes, and the cells that took its overflow pass, on the
+  timing input and over the main path.
 * the Kob-Andersen 80:20 mixture, ka3d (N = 1,000,000, rho 1.2, nmax 34,
   n_moves 60): the mixture sub-step kernel against its plain version for
   all 8 colors at full size under the same near-tie rule, the shift kernel
@@ -29,7 +33,7 @@ and checks two paths, each through the user's entry point
   small run (4,500 atoms) through the kernels against the plain CPU path,
   then the main path (100 + 100 sweeps) with launch counts, overflow, N,
   the A and B populations (800,000 / 200,000), ``validate_state`` and the
-  energy anchor.
+  energy anchor; the same shape and health lines as lj3d.
 
 Any failure raises and the script exits non-zero. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no
@@ -409,27 +413,34 @@ def substep_bound_ms(cfg, st, inputs, cells) -> tuple[float, str]:
     return bound(nbytes, ops)
 
 
+def bound_terms(cfg, st, inputs, cells) -> int:
+    """The pair terms the frozen-cache algorithm needs for one energetic
+    sub-step on this run's data: per cell occ x (frozen live slots) for the
+    cache, and for each move that stays in its cell the frozen live slots
+    plus 2 (occ - 1) own terms."""
+    _, perm, i, _, rec = inputs
+    color = int(perm[i])
+    _, nbr_occ = cells.neighbor_stack(cfg, st.pos, st.occ, color)
+    froz = nbr_occ.long().sum(0)
+    own = st.occ[color].long()
+    moves = rec["in_cell"].long()
+    terms = own * froz + moves * (froz + 2 * (own - 1).clamp(min=0))
+    return int(terms.sum())
+
+
 def energetic_substep_bound_ms(cfg, st, inputs, cells, ops_per_term
                                 ) -> tuple[float, str]:
     """3D energetic sub-step: least time for one sub-step on this run's
     data. Bytes: live slots (every plane) and occupancies read once, the
     random inputs read once, the own live slots' coordinates and the two
-    per-cell maps written once. Operations: the pair terms the
-    frozen-cache algorithm needs, per cell occ x (frozen live slots) for the
-    cache, and for each move that stays in its cell the frozen live slots
-    plus 2 (occ - 1) own terms."""
-    _, perm, i, draws, rec = inputs
+    per-cell maps written once. Operations: ``bound_terms`` pair terms."""
+    _, perm, i, draws, _ = inputs
     color = int(perm[i])
     occ = st.occ
     nbytes = (4 * st.pos.shape[1] * int(occ.sum()) + 4 * occ.numel()
               + sum(4 * t.numel() for t in draws)
               + 4 * cfg.dim * int(occ[color].sum()) + 8 * cfg.cells_per_color)
-    _, nbr_occ = cells.neighbor_stack(cfg, st.pos, occ, color)
-    froz = nbr_occ.long().sum(0)
-    own = occ[color].long()
-    moves = rec["in_cell"].long()
-    terms = own * froz + moves * (froz + 2 * (own - 1).clamp(min=0))
-    return bound(nbytes, ops_per_term * int(terms.sum()))
+    return bound(nbytes, ops_per_term * bound_terms(cfg, st, inputs, cells))
 
 
 def shift_bound_ms(cfg, st) -> tuple[float, str]:
@@ -480,10 +491,12 @@ def run_main_path(mt, bench, libs, n_moves: int) -> dict:
     return result
 
 
-def run_energetic_main_path(mt, bench, libs, workload: str) -> dict:
+def run_energetic_main_path(mt, bench, libs, workload: str,
+                            stats: torch.Tensor) -> dict:
     """An energetic main path (lj3d, ka3d) through the user's entry point:
-    launch counts over exactly this run, then the invariants (for ka3d the
-    A and B populations too) and the energy anchor."""
+    launch counts and the sub-step kernels' counters (overflow cells, full
+    pair terms) over exactly this run, then the invariants (for ka3d the A
+    and B populations too) and the energy anchor."""
     w = ENERGETIC[workload]
     cfg0, pot0, start = getattr(bench, w["build"])(1_000_000, w["nmax"], 60,
                                                    seed=0, device="cuda")
@@ -491,10 +504,12 @@ def run_energetic_main_path(mt, bench, libs, workload: str) -> dict:
                                      torch.float64))
     del start
     reset(libs)
+    stats.zero_()
     result, cfg, pot, st, warm, m = getattr(bench, w["run"])(
         sweeps=w["sweeps"])
     torch.cuda.synchronize()
     launches = {name: lib.launches for name, lib in libs.items()}
+    overflow_cells, full_terms = stats.tolist()
     total_sweeps = 2 * w["sweeps"]
     expect_launches(libs, launches, w["lib"], cfg, total_sweeps)
     check_result(mt, cfg, pot, st, result)
@@ -510,8 +525,12 @@ def run_energetic_main_path(mt, bench, libs, workload: str) -> dict:
     if gap > ANCHOR_REL * max(1.0, abs(e1 - e0)):
         raise AssertionError(f"energy anchor: E {e0} -> {e1} "
                              f"(difference {e1 - e0}), summed dE {de}")
+    n_sub = launches[w["lib"]]
     result.update(launches=launches, energy_start=e0, energy_end=e1, summed_de=de,
-                  anchor_rel_gap=gap / max(1.0, abs(e1 - e0)))
+                  anchor_rel_gap=gap / max(1.0, abs(e1 - e0)),
+                  overflow_cells=overflow_cells,
+                  cell_launches=n_sub * cfg.cells_per_color,
+                  full_terms_per_substep=full_terms / n_sub)
     print(json.dumps(result))
     return result
 
@@ -532,7 +551,10 @@ def time_energetic(mt, cuda_substep, cuda_shift, cells, workload, cfg, pot,
                    st, inputs) -> tuple[dict, dict, float]:
     """An energetic workload's kernel and plain-version times at the
     main-path shapes (kernels alone, launches not counted), their bounds
-    on this run's data, and the time of one sub-step's random draws."""
+    on this run's data, and the time of one sub-step's random draws.
+    Prints the sub-step kernel's launch shape and, for one sub-step on the
+    timing input, the full pair terms it evaluated beside the count the
+    bound takes, and the cells that took its overflow pass."""
     w = ENERGETIC[workload]
     sub, sh = w["substep"], w["shift"]
     before, perm, i, draws, _ = inputs["substep"]
@@ -540,6 +562,24 @@ def time_energetic(mt, cuda_substep, cuda_shift, cells, workload, cfg, pot,
     de_map = torch.empty(cfg.block_shape, dtype=torch.float32, device="cuda")
     acc_map = torch.empty(cfg.block_shape, dtype=torch.int32, device="cuda")
     launch = getattr(cuda_substep, w["launch"])
+    shape = cuda_substep.kernel_shape(
+        cuda_substep.kernel_library(cfg, pot), cfg.nmax)
+    stats = cuda_substep.kernel_stats("cuda")
+    stats.zero_()
+    launch(cfg, pot, work, st.occ, perm, i, *draws, de_map, acc_map)
+    torch.cuda.synchronize()
+    overflow_cells, full_terms = stats.tolist()
+    need = bound_terms(cfg, st, inputs["substep"], cells)
+    print(f"{sub} shape at nmax {cfg.nmax}: {shape['registers']} registers, "
+          f"{shape['local_bytes']} bytes local, shared memory "
+          f"{shape['static_smem']} static + {shape['dynamic_smem']} dynamic "
+          f"bytes a block, {shape['warps_per_sm']} resident warps an SM, "
+          f"{shape['staged_capacity']} staged slots a warp")
+    print(f"{sub} one sub-step: {full_terms} full pair terms evaluated, "
+          f"the bound counts {need} ({full_terms / need:.4f} of them); "
+          f"{overflow_cells} of {cfg.cells_per_color} cells took the "
+          "overflow pass")
+    work.copy_(before)
     plain = plain_substep(cuda_substep, pot)
     color = int(perm[i])
     times = {
@@ -649,8 +689,9 @@ def main() -> int:
 
     main64 = run_main_path(mt, bench, libs, 64)
     main8 = run_main_path(mt, bench, libs, 8)
-    paths = {workload: run_energetic_main_path(mt, bench, libs, workload)
-             for workload in ENERGETIC}
+    paths = {workload: run_energetic_main_path(
+        mt, bench, libs, workload, cuda_substep.kernel_stats("cuda"))
+        for workload in ENERGETIC}
     for res in (main64, main8):
         print(f"hard disks, n_moves {res['n_moves']}: {res['value']:.6e} "
               f"moves/s, {res['ms_per_sweep']:.6f} ms/sweep ({smi})")
@@ -659,6 +700,10 @@ def main() -> int:
               f"moves/s, {res['ms_per_sweep']:.6f} ms/sweep, acceptance "
               f"{res['acceptance']:.6f}, energy anchor gap "
               f"{res['anchor_rel_gap']:.3e} ({smi})")
+        print(f"{workload} main path: {res['overflow_cells']} of "
+              f"{res['cell_launches']} cell sub-steps took the overflow "
+              f"pass; {res['full_terms_per_substep']:.1f} full pair terms "
+              "per sub-step")
     print(f"per sweep at n_moves 64 ({smi}): substep kernel 4 x "
           f"{times['substep']:.6f} ms, random draws 4 x {rng_ms:.6f} ms, "
           f"schedule draw {sched_ms:.6f} ms, shift kernel "

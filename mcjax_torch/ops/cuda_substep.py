@@ -8,13 +8,16 @@ by (dim, model) and raises for any other configuration:
   ``ring_color_substep`` (body ``mcjax/ops/pallas_sweep.py::_make_kernel``),
   host-random form.
 * ``csrc/substep_lj.cu``, 3D Lennard-Jones: one warp owns one cell, with the
-  frozen-neighbor energy cache. It stands for
+  frozen-neighbor energy cache; the frozen slots that can reach the cell
+  are staged in shared memory (``cull_constants``) and only pairs within
+  the cutoff get the full term. It stands for
   ``mcjax/ops/pallas_sweep.py::_fused_core``, the single-species energetic
   form of ``pallas_color_substep`` and the 3D energetic form of
   ``ring_color_substep``, host-random form.
 * ``csrc/substep_mix.cu``, 3D binary Lennard-Jones mixtures with a
   species-independent cutoff ratio (Kob-Andersen): the LJ kernel's design
-  with two own slots a lane (nmax <= 64) and the species plane read-only.
+  with two own slots a lane (nmax <= 64), the species staged beside the
+  coordinates and the species plane read-only.
   It stands for the binary-mixture form of ``_fused_core`` (frozen cache)
   and of ``pallas_color_substep``, host-random form.
 
@@ -28,7 +31,9 @@ kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from mcjax_torch._build import CudaLibrary
@@ -59,25 +64,108 @@ LIB_LJ = CudaLibrary("substep_lj", {
     "mcjax_substep_lj3d": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float,
         ctypes.c_void_p],
+    "mcjax_substep_lj3d_shape": [ctypes.c_int, ctypes.c_void_p],
 })
 
 LIB_MIX = CudaLibrary("substep_mix", {
     "mcjax_substep_mix3d": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_void_p],
+    "mcjax_substep_mix3d_shape": [ctypes.c_int, ctypes.c_void_p],
 })
+
+# Exact culling of frozen slots in the energetic kernels. A frozen slot is
+# staged only if its box distance to the own cell, the cell grown by
+# ``cull_constants``'s pad on every side, is within the largest cutoff
+# grown by CULL_REL. The pad covers own slots that sit outside their cell
+# after a grid shift (``validate_state`` allows 1e-5 + 4 float32 ulps of
+# L/2; the pad is CULL_PAD_ABS + CULL_PAD_ULPS ulps). CULL_REL covers the
+# float32 rounding of the squared distance, the box distance and the
+# mixture's cutoff test (a few ulps, against 1e-4). So a dropped slot is
+# beyond every cutoff from every point a mover can hold, and would have
+# added exactly 0. The mixture kernel's candidate test grows each pair's
+# cutoff by the same CULL_REL; the LJ kernel's is its exact r2 <= r_cut^2.
+CULL_REL = 1e-4
+CULL_PAD_ABS = 1e-5
+CULL_PAD_ULPS = 64
+
+
+def cull_constants(cfg: SimConfig, r_cut: float) -> tuple[float, float]:
+    """(pad, reach2) of the frozen-slot culling for largest cutoff
+    ``r_cut``: the own cell grows by ``pad`` on every side, and a slot is
+    kept when its squared box distance is at most ``reach2``."""
+    ulp = float(np.spacing(np.float32(cfg.box_length / 2.0)))
+    pad = CULL_PAD_ABS + CULL_PAD_ULPS * ulp
+    return pad, (r_cut * (1.0 + CULL_REL)) ** 2
+
+
+def keep_frozen(cfg: SimConfig, r_cut: float, lower: torch.Tensor,
+                slots: torch.Tensor) -> torch.Tensor:
+    """The kernels' culling test in float32, for tests: True where a
+    frozen slot at ``slots`` [..., 3] (unwrapped into the own cell's
+    frame) is staged for the own cell whose lower corner is ``lower`` [3]
+    (float32, as ``cell_lower_bounds`` gives it)."""
+    pad, reach2 = cull_constants(cfg, r_cut)
+    f32 = torch.float32
+    pad_t = torch.tensor(pad, dtype=f32)
+    lo = lower - pad_t
+    up = (lower + torch.tensor(cfg.cell_width, dtype=f32)) + pad_t
+    d = torch.clamp(torch.maximum(lo - slots, slots - up), min=0.0)
+    return squared_norm(d, -1) <= torch.tensor(reach2, dtype=f32)
+
+
+_STATE: dict[torch.device, torch.Tensor] = {}
+
+
+def kernel_state(device: torch.device) -> torch.Tensor:
+    """The energetic kernels' int64 [4] buffer on ``device``: the counters
+    of ``kernel_stats``, then the mixture kernel's cell counter and count
+    of finished warps (its persistent grid), which each launch leaves at 0
+    for the next; launches on one device run in turn on one stream."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _STATE:
+        _STATE[device] = torch.zeros(4, dtype=torch.int64, device=device)
+    return _STATE[device]
+
+
+def kernel_stats(device: torch.device) -> torch.Tensor:
+    """The energetic kernels' counters on ``device``, int64 [2], added to by
+    every launch there: cells whose frozen slots overflowed the shared
+    memory (they take a second pass from device memory), and full pair
+    terms evaluated. Reset with ``.zero_()``."""
+    return kernel_state(device)[:2]
+
+
+def kernel_shape(lib: CudaLibrary, nmax: int) -> dict:
+    """The launch shape of an energetic kernel at ``nmax`` on the current
+    device, from the CUDA runtime: registers a thread, static and dynamic
+    shared memory a block (bytes), local memory a thread (bytes), resident
+    warps an SM and the staged frozen slots a warp holds."""
+    fn = {"substep_lj": "mcjax_substep_lj3d_shape",
+          "substep_mix": "mcjax_substep_mix3d_shape"}[lib.name]
+    out = (ctypes.c_int * 6)()
+    err = getattr(lib.load(), fn)(nmax, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"{lib.name}.{fn}: CUDA error {err}")
+    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes",
+            "warps_per_sm", "staged_capacity")
+    return dict(zip(keys, out))
 
 
 def squared_norm(d: torch.Tensor, axis: int) -> torch.Tensor:
@@ -345,29 +433,37 @@ def launch_lj_kernel(cfg: SimConfig, pot: LennardJones, pos: torch.Tensor,
     """One launch of the 3D LJ kernel on inputs ``substep`` has checked:
     updates pos[perm[i]] in place and writes each cell's summed dE of
     accepted moves into ``de_map`` (float32 [*bs]) and its accept count into
-    ``acc_map`` (int32 [*bs]). The model's constants go in as the float32
-    values the plain version rounds them to."""
+    ``acc_map`` (int32 [*bs]); adds to ``kernel_stats``. The model's
+    constants go in as the float32 values the plain version rounds them
+    to."""
     LIB_LJ.launch(
         "mcjax_substep_lj3d",
         pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), i,
         pick_u.data_ptr(), disp.data_ptr(), acc_u.data_ptr(),
         de_map.data_ptr(), acc_map.data_ptr(),
+        kernel_state(pos.device).data_ptr(),
         cfg.half_cps, cfg.nmax, cfg.n_moves,
         cfg.cell_width, cfg.box_length / 2.0, cfg.box_length, cfg.beta,
         pot.sigma * pot.sigma, 4.0 * pot.epsilon, pot.shift_value,
-        pot.r_cut * pot.r_cut,
+        pot.r_cut * pot.r_cut, *cull_constants(cfg, pot.r_cut),
         torch.cuda.current_stream(pos.device).cuda_stream)
 
 
+@functools.lru_cache(maxsize=None)
 def mixture_constants(pot: LJMixture) -> tuple[float, ...]:
     """The mixture kernel's constants: f32 blends of sigma^2 and 4 eps at
     u = s_i + s_j = 0, 1, 2, computed by the plain version's own float32
-    operations, then the shift constant and the cutoff ratio squared."""
+    operations, the candidate bounds on r2 (each pair's cutoff^2 grown by
+    CULL_REL), then the shift constant and the cutoff ratio squared.
+    Cached per model: a launch should not pay for the small tensor ops."""
     ce4, cs2, _, _ = pot._binary_coeffs()
     u = torch.tensor([0.0, 1.0, 2.0])
     u2 = u * u
-    return (*_blend(cs2, u, u2).tolist(), *_blend(ce4, u, u2).tolist(),
-            pot.uniform_shift_constant, pot._uniform_cutoff_ratio2())
+    sig2 = _blend(cs2, u, u2).tolist()
+    c2 = pot._uniform_cutoff_ratio2()
+    cand2 = [s2 * c2 * (1.0 + CULL_REL) ** 2 for s2 in sig2]
+    return (*sig2, *_blend(ce4, u, u2).tolist(), *cand2,
+            pot.uniform_shift_constant, c2)
 
 
 def launch_mix_kernel(cfg: SimConfig, pot: LJMixture, pos: torch.Tensor,
@@ -378,13 +474,15 @@ def launch_mix_kernel(cfg: SimConfig, pot: LJMixture, pos: torch.Tensor,
     """One launch of the 3D mixture kernel on inputs ``substep`` has
     checked: updates the coordinates of pos[perm[i]] in place and writes
     each cell's summed dE of accepted moves into ``de_map`` and its accept
-    count into ``acc_map``, as ``launch_lj_kernel`` does."""
+    count into ``acc_map``, and adds to ``kernel_stats``, as
+    ``launch_lj_kernel`` does."""
     LIB_MIX.launch(
         "mcjax_substep_mix3d",
         pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), i,
         pick_u.data_ptr(), disp.data_ptr(), acc_u.data_ptr(),
         de_map.data_ptr(), acc_map.data_ptr(),
+        kernel_state(pos.device).data_ptr(),
         cfg.half_cps, cfg.nmax, cfg.n_moves,
         cfg.cell_width, cfg.box_length / 2.0, cfg.box_length, cfg.beta,
-        *mixture_constants(pot),
+        *mixture_constants(pot), *cull_constants(cfg, pot.r_cut),
         torch.cuda.current_stream(pos.device).cuda_stream)

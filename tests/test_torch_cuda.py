@@ -13,7 +13,7 @@ import torch
 
 import mcjax_torch as mt
 from mcjax_torch import bench
-from mcjax_torch.ops import cuda_shift, cuda_substep, mixture
+from mcjax_torch.ops import cells, cuda_shift, cuda_substep, mixture
 from mcjax_torch.ops.random import TorchRandoms
 
 pytestmark = pytest.mark.cuda
@@ -106,27 +106,66 @@ def _shift_kernel_matches_plain(cfg, st, d):
             assert bool(got[2]) == bool(want[2])
 
 
-@pytest.mark.parametrize("n,nmax", [(4000, 24), (3000, 16)])
-def test_lj_kernels_match_plain(cuda, n, nmax):
-    """The 3D LJ sub-step kernel against its plain version for all 8
+def _energetic_case(case, device):
+    """(cfg, pot, state, warm-up sweeps) of a kernel-vs-plain case.
+
+    ``lj`` / ``ka`` with (n, nmax): the lj3d / ka3d systems at n atoms.
+    ``sparse``: 150 atoms in 216 cells, so the cells hold 0 or 1.
+    ``full``: every cell holds nmax (LJ 32, mixture 64) on a sub-grid of
+    spacing w / 4, with sigma halved (cutoff ratio 5) so the energies stay
+    moderate; the frozen slots within reach of a cell exceed the kernels'
+    shared memory, which drives the overflow pass. No warm-up sweep: a
+    shift would overflow the full cells."""
+    model, layout = case[0], case[1]
+    if layout not in ("sparse", "full"):
+        build = bench.build_lj3d if model == "lj" else bench.build_ka3d
+        return (*build(*layout, 16, device=device), 2)
+    full = layout == "full"
+    nmax = (32 if model == "lj" else 64) if full else 24
+    cfg = mt.SimConfig(dim=3, n_atoms=216 * nmax if full else 150,
+                       box_length=6 * 2.55, cells_per_side=6, nmax=nmax,
+                       n_moves=16, proposal="gaussian", step_size=0.12,
+                       beta=0.3)
+    x = cells.stratified_positions(cfg, device)
+    sig = 0.5 if full else 1.0
+    warm = 0 if full else 2
+    if model == "lj":
+        return (cfg, mt.LennardJones(sigma=sig, r_cut=2.5),
+                mt.init_state(cfg, device, x), warm)
+    table = ((sig, 0.8 * sig), (0.8 * sig, 0.88 * sig))
+    pot = mt.LJMixture(epsilon=((1.0, 1.5), (1.5, 0.5)), sigma=table,
+                       r_cut_table=tuple(tuple(2.5 / sig * v for v in row)
+                                         for row in table), shift=True)
+    species = (torch.arange(cfg.n_atoms, device=device) % 5 == 4).int()
+    return (cfg, pot, mixture.init_mixture_state(cfg, x, species, device),
+            warm)
+
+
+def _energetic_kernel_matches_plain(cuda, case, lib, plain):
+    """The sub-step kernel of ``lib`` against its plain version for all 8
     colors (bit for bit outside cells where a decision came within a
-    relative 1e-5 of a tie; dE per cell within 1e-5 relative + 1e-4), and
-    the 3D shift kernel bit for bit for 3 axes x 2 signs of d."""
-    cfg, pot, st = bench.build_lj3d(n, nmax, 16, device=cuda)
-    rnd = TorchRandoms(torch.Generator(cuda).manual_seed(n + nmax))
-    st, _ = mt.run_sweeps(cfg, pot, st, 2, rnd)     # leave the start
+    relative 1e-5 of a tie; dE per sub-step within 1e-5 relative + 1e-4),
+    then the shift kernel bit for bit; returns (cfg, pot, state) and the
+    kernels' counters over the 8 sub-steps."""
+    cfg, pot, st, warm = _energetic_case(case, cuda)
+    seed = cfg.n_atoms + cfg.nmax
+    rnd = TorchRandoms(torch.Generator(cuda).manual_seed(seed))
+    if warm:
+        st, _ = mt.run_sweeps(cfg, pot, st, warm, rnd)  # leave the start
     perm, axis, d = rnd.schedule(cfg, st.sweep)
+    stats = cuda_substep.kernel_stats(cuda)
+    stats.zero_()
     for i in range(cfg.n_colors):
         pick_u, disp, acc_u = rnd.substep(cfg, st.sweep, i, True)
         color = int(perm[i])
         rec = {}
-        own, de, acc, prop = cuda_substep.color_substep(
-            cfg, pot, color, st.pos, st.occ, pick_u, disp, acc_u, rec)
-        before = cuda_substep.LIB_LJ.launches
+        own, de, acc, prop = plain(cfg, pot, color, st.pos, st.occ, pick_u,
+                                   disp, acc_u, rec)
+        before = lib.launches
         k_de, k_acc, k_prop = cuda_substep.substep(
             cfg, pot, st.pos, st.occ, perm, i, pick_u, disp, acc_u)
         torch.cuda.synchronize()
-        assert cuda_substep.LIB_LJ.launches == before + 1
+        assert lib.launches == before + 1
         differs = (st.pos[color].view(torch.int32)
                    != own.view(torch.int32)).any(dim=0).any(dim=0)
         ties = rec["margin"] <= 1e-5
@@ -135,7 +174,28 @@ def test_lj_kernels_match_plain(cuda, n, nmax):
         if not bool(differs.any()):
             assert int(k_acc) == int(acc)
             assert abs(float(k_de) - float(de)) <= 1e-5 * abs(float(de)) + 1e-4
-    _shift_kernel_matches_plain(cfg, st, d)
+    counts = stats.tolist()
+    if case[1] != "full":
+        _shift_kernel_matches_plain(cfg, st, d)
+    return cfg, pot, st, counts
+
+
+@pytest.mark.parametrize("n,nmax", [(4000, 24), (3000, 16), ("sparse", 24),
+                                    ("full", 32)])
+def test_lj_kernels_match_plain(cuda, n, nmax):
+    """The 3D LJ sub-step kernel against its plain version for all 8
+    colors (bit for bit outside cells where a decision came within a
+    relative 1e-5 of a tie; dE per cell within 1e-5 relative + 1e-4), and
+    the 3D shift kernel bit for bit for 3 axes x 2 signs of d. The
+    ``sparse`` case has empty and single-occupant cells; in the ``full``
+    one every cell holds 32 and the frozen slots overflow the shared
+    memory, so the kernel's overflow pass runs (counted)."""
+    layout = n if isinstance(n, str) else (n, nmax)
+    _, _, _, counts = _energetic_kernel_matches_plain(
+        cuda, ("lj", layout), cuda_substep.LIB_LJ, cuda_substep.color_substep)
+    assert counts[1] > 0
+    if layout == "full":
+        assert counts[0] > 0
 
 
 @pytest.mark.parametrize("seam_axis", range(3))
@@ -164,37 +224,124 @@ def test_shift_kernel_seam_guard_3d(cuda, seam_axis):
     assert float(got[0][(c, seam_axis, 0, *b)]) > 0
 
 
-@pytest.mark.parametrize("n,nmax", [(4500, 34), (2800, 64)])
+@pytest.mark.parametrize("n,nmax", [(4500, 34), (2800, 64), ("sparse", 34),
+                                    ("full", 64)])
 def test_mixture_kernel_matches_plain(cuda, n, nmax):
     """The Kob-Andersen sub-step kernel against its plain version for all
     8 colors (bit for bit, species plane included, outside cells where a
     decision came within a relative 1e-5 of a tie; dE within 1e-5 relative
     + 1e-4), and the shift kernel with the species plane bit for bit for
     3 axes x 2 signs of d. At 2,800 atoms the cells hold about 44, so
-    both own slots of a lane are in use."""
-    cfg, pot, st = bench.build_ka3d(n, nmax, 16, device=cuda)
-    rnd = TorchRandoms(torch.Generator(cuda).manual_seed(n + nmax))
-    st, _ = mt.run_sweeps(cfg, pot, st, 2, rnd)     # leave the start
-    perm, axis, d = rnd.schedule(cfg, st.sweep)
-    for i in range(cfg.n_colors):
-        pick_u, disp, acc_u = rnd.substep(cfg, st.sweep, i, True)
-        color = int(perm[i])
-        rec = {}
-        own, de, acc, prop = mixture.color_substep_mixture(
-            cfg, pot, color, st.pos, st.occ, pick_u, disp, acc_u, rec)
-        before = cuda_substep.LIB_MIX.launches
-        k_de, k_acc, k_prop = cuda_substep.substep(
-            cfg, pot, st.pos, st.occ, perm, i, pick_u, disp, acc_u)
-        torch.cuda.synchronize()
-        assert cuda_substep.LIB_MIX.launches == before + 1
-        differs = (st.pos[color].view(torch.int32)
-                   != own.view(torch.int32)).any(dim=0).any(dim=0)
-        ties = rec["margin"] <= 1e-5
-        assert not bool((differs & ~ties).any())
-        assert int(k_prop) == int(prop)
-        if not bool(differs.any()):
-            assert int(k_acc) == int(acc)
-            assert abs(float(k_de) - float(de)) <= 1e-5 * abs(float(de)) + 1e-4
-    _shift_kernel_matches_plain(cfg, st, d)
-    n_b = n // 5
-    mt.validate_state(cfg, st, pot, expect_species=[n - n_b, n_b])
+    both own slots of a lane are in use; ``sparse`` and ``full`` are the
+    LJ test's cases (full: 64 a cell, the overflow pass)."""
+    layout = n if isinstance(n, str) else (n, nmax)
+    cfg, pot, st, counts = _energetic_kernel_matches_plain(
+        cuda, ("ka", layout), cuda_substep.LIB_MIX,
+        mixture.color_substep_mixture)
+    assert counts[1] > 0
+    if layout == "full":
+        assert counts[0] > 0
+    n_b = cfg.n_atoms // 5
+    mt.validate_state(cfg, st, pot,
+                      expect_species=[cfg.n_atoms - n_b, n_b])
+
+
+def _f32_step(x: float, ulps: int) -> float:
+    """x moved by ``ulps`` float32 steps (toward +inf when positive)."""
+    t = torch.tensor(x, dtype=torch.float32)
+    to = torch.tensor(math.copysign(math.inf, ulps), dtype=torch.float32)
+    for _ in range(abs(ulps)):
+        t = torch.nextafter(t, to)
+    return float(t)
+
+
+def _edge_state(model, ulps, outside, device):
+    """A state built to sit on the culling boundary. Every own cell of
+    color 0 at even block indices holds one slot, on the face, edge or
+    corner of its cell that faces one of the 26 neighbor directions
+    (``outside`` float32 ulps beyond the cell on the axes it faces, as a
+    slot can sit after a grid shift); that neighbor holds one slot at
+    r_cut (the largest cutoff, 2.5) from it, moved ``ulps`` float32 ulps
+    along the direction. Unshifted potentials, so a term at r_cut is not 0.
+    Returns (cfg, pot, state, the [3, *bs] inward unit steps of color 0)."""
+    cfg = mt.SimConfig(dim=3, n_atoms=52, box_length=16 * 2.55,
+                       cells_per_side=16, nmax=4, n_moves=1,
+                       proposal="gaussian", step_size=0.12, beta=0.3)
+    planes = 3 if model == "lj" else 4
+    w, h = cfg.cell_width, cfg.box_length / 2
+    pos = torch.zeros((8, planes, cfg.nmax, *cfg.block_shape))
+    occ = torch.zeros((8, *cfg.block_shape), dtype=torch.int32)
+    inward = torch.zeros((3, *cfg.block_shape))
+    dirs = cells.neighbor_offsets(3)
+    for k, dvec in enumerate(dirs):
+        blk = (2 * (k % 4), 2 * ((k // 4) % 4), 2 * (k // 16))
+        lb = [float(torch.tensor(2 * b * w - h, dtype=torch.float32))
+              for b in blk]
+        x = []
+        for a in range(3):
+            if dvec[a] < 0:
+                x.append(_f32_step(lb[a], -outside))
+            elif dvec[a] > 0:
+                top = float(torch.tensor(lb[a] + w, dtype=torch.float32))
+                x.append(_f32_step(_f32_step(top, -1), outside))
+            else:
+                x.append(lb[a] + w / 2)
+        norm = math.sqrt(sum(v * v for v in dvec))
+        y = [x[a] + 2.5 * dvec[a] / norm for a in range(3)]
+        y = [_f32_step(y[a], ulps * dvec[a]) if dvec[a] else y[a]
+             for a in range(3)]
+        occ[(0, *blk)] = 1
+        pos[(0, slice(0, 3), 0, *blk)] = torch.tensor(x)
+        inward[(slice(None), *blk)] = torch.tensor([-v / norm for v in dvec])
+        ncell = [2 * b + v for b, v in zip(blk, dvec)]
+        color = sum((c % 2) << a for a, c in enumerate(ncell))
+        nblk = tuple(c // 2 for c in ncell)
+        nblk = tuple(c % cfg.half_cps for c in nblk)
+        y = [v + cfg.box_length if c < 0 else v for v, c in zip(y, ncell)]
+        slot = int(occ[(color, *nblk)])
+        occ[(color, *nblk)] += 1
+        pos[(color, slice(0, 3), slot, *nblk)] = torch.tensor(y)
+    if model == "lj":
+        pot = mt.LennardJones(r_cut=2.5)
+    else:
+        pot = mt.LJMixture(
+            epsilon=((1.0, 1.5), (1.5, 0.5)), sigma=((1.0, 0.8), (0.8, 0.88)),
+            r_cut_table=((2.5, 2.0), (2.0, 2.2)), shift=False)
+    st = mt.SimState(pos=pos.to(device), occ=occ.to(device), sweep=0,
+                     overflow=torch.zeros((), dtype=torch.bool, device=device))
+    return cfg, pot, st, inward.to(device)
+
+
+@pytest.mark.parametrize("model", ["lj", "ka"])
+@pytest.mark.parametrize("ulps,outside", [(u, o) for u in (-4, -3, -2, -1, 1,
+                                                            2, 3, 4)
+                                          for o in (0, 2)])
+def test_energetic_kernels_at_the_cutoff_edge(cuda, model, ulps, outside):
+    """Frozen slots 1-4 float32 ulps inside and outside r_cut of an own
+    slot on each face, edge and corner of its cell (the own slot on the
+    cell's bound or ``outside`` ulps beyond it), moved inward by 0.01 and
+    always accepted: the kernel's per-cell dE (which holds the cached
+    energy at the start, a term near r_cut that culling must keep) equals
+    the plain version's within 1e-5 relative + 1e-4."""
+    cfg, pot, st, inward = _edge_state(model, ulps, outside, cuda)
+    bs = cfg.block_shape
+    perm = torch.arange(8, dtype=torch.int32, device=cuda)
+    pick_u = torch.zeros((1, *bs), device=cuda)
+    disp = (0.01 * inward)[None].contiguous()
+    acc_u = torch.zeros((1, *bs), device=cuda)
+    rec = {}
+    plain = (cuda_substep.color_substep if model == "lj"
+             else mixture.color_substep_mixture)
+    own, de, acc, _ = plain(cfg, pot, 0, st.pos, st.occ, pick_u, disp, acc_u,
+                            rec)
+    de_map = torch.empty(bs, device=cuda)
+    acc_map = torch.empty(bs, dtype=torch.int32, device=cuda)
+    launch = (cuda_substep.launch_lj_kernel if model == "lj"
+              else cuda_substep.launch_mix_kernel)
+    launch(cfg, pot, st.pos, st.occ, perm, 0, pick_u, disp, acc_u, de_map,
+           acc_map)
+    torch.cuda.synchronize()
+    assert int(acc_map.sum()) == int(acc) == 26
+    assert torch.equal(st.pos[0].view(torch.int32), own.view(torch.int32))
+    gap = (de_map - rec["de_cell"]).abs()
+    assert bool((gap <= 1e-5 * rec["de_cell"].abs() + 1e-4).all())
