@@ -9,10 +9,13 @@ and checks three paths, each through the user's entry point
 (``mcjax_torch.bench``):
 
 * 2D hard disks (N = 1,048,576, phi 0.5, nmax 7, n_moves 64 and 8): each
-  kernel held bit for bit against its plain PyTorch version at full size, a
-  small run through the kernels against the plain CPU path fed the same
-  random numbers, then the main path with launch counts, overflow, particle
-  count, overlaps and acceptance checked.
+  kernel held bit for bit against its plain PyTorch version at full size
+  (the sub-step kernel as one launch of a sweep's four sub-steps against
+  four plain sub-steps), a small run through the kernels against the plain
+  CPU path fed the same random numbers, then the main path (one sub-step
+  launch a sweep) with launch counts, overflow, particle count, overlaps
+  and acceptance checked; the sub-step kernel's launch shape, cooperative
+  grid and overflow-pass cells are printed.
 * 3D Lennard-Jones (N = 1,000,000, rho 0.8, nmax 24, n_moves 60): the LJ
   sub-step kernel against its plain version for all 8 colors at full size
   after a few sweeps (bit for bit outside cells where a decision came
@@ -169,7 +172,9 @@ def check_shift_kernel(cfg, st, d, cuda_shift) -> float:
 
 
 def check_kernels_against_plain(mt, cuda_substep, cuda_shift):
-    """2D: each kernel vs its plain version, at 1M, same inputs."""
+    """2D: each kernel vs its plain version, at 1M, same inputs: the
+    sub-step kernel as one launch of the sweep's four sub-steps against
+    four plain sub-steps."""
     from mcjax_torch import bench
     cfg, pot, st = bench.build(1 << 20, 0.5, 2.0, 7, 64, seed=0,
                                device="cuda")
@@ -178,29 +183,32 @@ def check_kernels_against_plain(mt, cuda_substep, cuda_shift):
     perm, axis, d = rnd.schedule(cfg, st.sweep)
     err = {}
     inputs = {}
-    sub_err = 0.0
-    for i in range(cfg.n_colors):
-        pick_u, disp, _ = rnd.substep(cfg, st.sweep, i, False)
+    draws = [rnd.substep(cfg, st.sweep, i, False)
+             for i in range(cfg.n_colors)]
+    before = st.pos.clone()
+    want = st.pos.clone()
+    plain_counts = []
+    for i, (pick_u, disp, _) in enumerate(draws):
         color = int(perm[i])
-        before = st.pos.clone()
-        own, _, acc, prop = cuda_substep.color_substep(cfg, pot, color,
-                                                       st.pos, st.occ, pick_u,
-                                                       disp)
-        _, k_acc, k_prop = cuda_substep.substep(cfg, pot, st.pos, st.occ,
-                                                perm, i, pick_u, disp)
-        torch.cuda.synchronize()
-        want = before
+        own, _, acc, prop = cuda_substep.color_substep(cfg, pot, color, want,
+                                                       st.occ, pick_u, disp)
         want[color] = own
-        sub_err = max(sub_err, abs_err(st.pos, want))
-        if not bitwise_equal(st.pos, want):
-            raise AssertionError(f"substep kernel != plain, color {color}")
-        if (int(k_acc), int(k_prop)) != (int(acc), int(prop)):
-            raise AssertionError(f"substep counts {int(k_acc)}/{int(k_prop)}"
-                                 f" != plain {int(acc)}/{int(prop)}")
-        print(f"substep color {color}: bitwise equal, accepted {int(acc)} "
-              f"of {int(prop)}")
-        inputs["substep"] = (before, perm, i, pick_u, disp)
-    err["substep"] = sub_err
+        plain_counts.append((int(acc), int(prop)))
+    _, k_acc, k_prop = cuda_substep.substeps(cfg, pot, st.pos, st.occ, perm,
+                                             draws)
+    torch.cuda.synchronize()
+    err["substep"] = abs_err(st.pos, want)
+    if not bitwise_equal(st.pos, want):
+        raise AssertionError("substep kernel (one launch, 4 sub-steps) != "
+                             "4 plain sub-steps")
+    k_counts = list(zip(k_acc.tolist(), k_prop.tolist()))
+    if k_counts != plain_counts:
+        raise AssertionError(f"substep counts {k_counts} != plain "
+                             f"{plain_counts}")
+    print(f"substep, one launch of 4 sub-steps (colors {perm.tolist()}): "
+          f"bitwise equal to 4 plain sub-steps; accepted / proposed "
+          f"{k_counts}")
+    inputs["substep"] = (before, perm, draws)
     err["shift"] = check_shift_kernel(cfg, st, d, cuda_shift)
     inputs["shift"] = (st.pos, st.occ, axis, d)
     return cfg, pot, st, err, inputs
@@ -395,21 +403,25 @@ def check_energetic_small_run_against_cpu(mt, cuda_substep, cuda_shift,
 
 
 def substep_bound_ms(cfg, st, inputs, cells) -> tuple[float, str]:
-    """2D: least time for one sub-step on this run's data: live slots read
-    and written once, random inputs read once; pair tests the occupancies
-    need."""
-    _, perm, i, pick_u, disp = inputs
-    color = int(perm[i])
+    """2D: least time for one launch of the sweep's sub-steps on this run's
+    data: live slots read once and the active colors' live slots written
+    once, occupancies and every sub-step's random inputs read once, the
+    counts written; pair tests the occupancies need, every live slot of
+    the own and neighbor cells for each move."""
+    _, perm, draws = inputs
+    colors = [int(c) for c in perm[:len(draws)]]
     occ = st.occ
     live = int(occ.sum())
-    own_live = int(occ[color].sum())
-    nbytes = (4 * cfg.dim * live + occ.numel() * 4 + 4 * pick_u.numel()
-              + 4 * disp.numel() + 4 * cfg.dim * own_live
-              + 4 * cfg.cells_per_color)
-    _, nbr_occ = cells.neighbor_stack(cfg, st.pos, occ, color)
-    own = occ[color].long()
-    tests = torch.where(own > 0, (own - 1) + nbr_occ.long().sum(0), 0)
-    ops = OPS_PER_PAIR_TEST * cfg.n_moves * int(tests.sum())
+    own_live = sum(int(occ[c].sum()) for c in colors)
+    nbytes = (4 * cfg.dim * live + occ.numel() * 4
+              + sum(4 * (p.numel() + d.numel()) for p, d, _ in draws)
+              + 4 * cfg.dim * own_live + 16 * len(draws))
+    ops = 0
+    for color in colors:
+        _, nbr_occ = cells.neighbor_stack(cfg, st.pos, occ, color)
+        own = occ[color].long()
+        tests = torch.where(own > 0, (own - 1) + nbr_occ.long().sum(0), 0)
+        ops += OPS_PER_PAIR_TEST * cfg.n_moves * int(tests.sum())
     return bound(nbytes, ops)
 
 
@@ -462,30 +474,37 @@ def reset(libs) -> None:
         lib.launches = 0
 
 
-def expect_launches(libs, launches, substep_lib, cfg, total_sweeps) -> None:
-    """The run launched its sub-step kernel once per color and sweep, the
+def expect_launches(libs, launches, substep_lib, per_sweep,
+                    total_sweeps) -> None:
+    """The run launched its sub-step kernel ``per_sweep`` times a sweep
+    (once for 2D disks, once per color for the energetic models), the
     shift once per sweep, and no other kernel."""
     want = {name: 0 for name in libs}
-    want[substep_lib] = cfg.n_colors * total_sweeps
+    want[substep_lib] = per_sweep * total_sweeps
     want["shift"] = total_sweeps
     if launches != want:
         raise AssertionError(f"launch counts {launches} for {total_sweeps} "
                              f"sweeps, want {want}")
 
 
-def run_main_path(mt, bench, libs, n_moves: int) -> dict:
+def run_main_path(mt, bench, libs, n_moves: int, stats: torch.Tensor) -> dict:
     """2D main path through the user's entry point, with every kernel's
-    launch count taken over exactly this run."""
+    launch count and the sub-step kernel's overflow-pass cells taken over
+    exactly this run."""
     reset(libs)
+    stats.zero_()
     result, cfg, pot, st, _, m = bench.run_bench(n_moves=n_moves,
                                                  sweeps=MAIN_SWEEPS)
     torch.cuda.synchronize()
     launches = {name: lib.launches for name, lib in libs.items()}
     total_sweeps = 2 * MAIN_SWEEPS                   # warm-up + timed
-    expect_launches(libs, launches, "substep", cfg, total_sweeps)
+    expect_launches(libs, launches, "substep", 1, total_sweeps)
     check_result(mt, cfg, pot, st, result)
     result.update(mt.validate_state(cfg, st, pot))   # incl. no overlap
     result["launches"] = launches
+    result["overflow_cells"] = int(stats[0])
+    result["cell_substeps"] = total_sweeps * cfg.n_colors * \
+        cfg.cells_per_color
     result["ms_per_sweep"] = 1e3 * result["seconds"] / MAIN_SWEEPS
     print(json.dumps(result))
     return result
@@ -511,7 +530,7 @@ def run_energetic_main_path(mt, bench, libs, workload: str,
     launches = {name: lib.launches for name, lib in libs.items()}
     overflow_cells, full_terms = stats.tolist()
     total_sweeps = 2 * w["sweeps"]
-    expect_launches(libs, launches, w["lib"], cfg, total_sweeps)
+    expect_launches(libs, launches, w["lib"], cfg.n_colors, total_sweeps)
     check_result(mt, cfg, pot, st, result)
     result.update(mt.validate_state(cfg, st, pot,
                                     expect_species=w["species"]))
@@ -655,16 +674,32 @@ def main() -> int:
     # Kernel and plain-version times at the main-path shapes. Kernels
     # alone: the wrappers' checks, allocations and count reductions stay
     # out of the timed loop, and these launches are not counted.
-    before, perm, i, pick_u, disp = inputs["substep"]
+    before, perm, draws = inputs["substep"]
     work = before.clone()
-    acc_map = torch.empty(cfg.block_shape, dtype=torch.int32, device="cuda")
+    counts = torch.zeros((len(draws), 2), dtype=torch.int64, device="cuda")
+    shape = cuda_substep.kernel_shape(cuda_substep.LIB, cfg.nmax,
+                                      cfg.cells_per_color)
+    print(f"substep shape at nmax {cfg.nmax}: {shape['registers']} "
+          f"registers, {shape['local_bytes']} bytes local, shared memory "
+          f"{shape['static_smem']} static + {shape['dynamic_smem']} dynamic "
+          f"bytes a block, {shape['warps_per_sm']} resident warps an SM, "
+          f"{shape['staged_capacity']} staged frozen slots a thread; "
+          f"cooperative grid {shape['grid_blocks']} blocks of 128 threads "
+          f"for {cfg.cells_per_color} cells a color")
+    pick_us = [p for p, _, _ in draws]
+    disps = [dd for _, dd, _ in draws]
     times = {}
     times["substep"] = cuda_ms(lambda: cuda_substep.launch_kernel(
-        cfg, pot, work, st.occ, perm, i, pick_u, disp, acc_map),
+        cfg, pot, work, st.occ, perm, 0, pick_us, disps, counts),
         TIMED_LAUNCHES)
-    color = int(perm[i])
-    times["substep_plain"] = cuda_ms(lambda: cuda_substep.color_substep(
-        cfg, pot, color, before, st.occ, pick_u, disp), PLAIN_RUNS)
+
+    def plain_sweep_substeps():
+        pos = before.clone()
+        for j, (p_u, dsp, _) in enumerate(draws):
+            c = int(perm[j])
+            pos[c] = cuda_substep.color_substep(cfg, pot, c, pos, st.occ,
+                                                p_u, dsp)[0]
+    times["substep_plain"] = cuda_ms(plain_sweep_substeps, PLAIN_RUNS)
     s_pos, s_occ, s_axis, s_d = inputs["shift"]
     outs = (torch.empty_like(s_pos), torch.empty_like(s_occ),
             torch.zeros((), dtype=torch.int32, device="cuda"))
@@ -687,14 +722,17 @@ def main() -> int:
         times.update(e_times)
         bounds.update(e_bounds)
 
-    main64 = run_main_path(mt, bench, libs, 64)
-    main8 = run_main_path(mt, bench, libs, 8)
+    stats = cuda_substep.kernel_stats("cuda")
+    main64 = run_main_path(mt, bench, libs, 64, stats)
+    main8 = run_main_path(mt, bench, libs, 8, stats)
     paths = {workload: run_energetic_main_path(
         mt, bench, libs, workload, cuda_substep.kernel_stats("cuda"))
         for workload in ENERGETIC}
     for res in (main64, main8):
         print(f"hard disks, n_moves {res['n_moves']}: {res['value']:.6e} "
-              f"moves/s, {res['ms_per_sweep']:.6f} ms/sweep ({smi})")
+              f"moves/s, {res['ms_per_sweep']:.6f} ms/sweep ({smi}); "
+              f"{res['overflow_cells']} of {res['cell_substeps']} cell "
+              "sub-steps took the overflow pass")
     for workload, res in paths.items():
         print(f"{workload}, n_moves {res['n_moves']}: {res['value']:.6e} "
               f"moves/s, {res['ms_per_sweep']:.6f} ms/sweep, acceptance "
@@ -704,8 +742,9 @@ def main() -> int:
               f"{res['cell_launches']} cell sub-steps took the overflow "
               f"pass; {res['full_terms_per_substep']:.1f} full pair terms "
               "per sub-step")
-    print(f"per sweep at n_moves 64 ({smi}): substep kernel 4 x "
-          f"{times['substep']:.6f} ms, random draws 4 x {rng_ms:.6f} ms, "
+    print(f"per sweep at n_moves 64 ({smi}): substep kernel 1 x "
+          f"{times['substep']:.6f} ms (4 sub-steps), random draws 4 x "
+          f"{rng_ms:.6f} ms, "
           f"schedule draw {sched_ms:.6f} ms, shift kernel "
           f"{times['shift']:.6f} ms")
     for workload, (_, _, e_rng_ms) in energetic.items():

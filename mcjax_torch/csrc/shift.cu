@@ -19,25 +19,38 @@
 // coordinates, then NP - DIM = 0 or 1 attribute planes):
 //   pos[color, NP, nmax, B, ..., B] f32, occ[color, B, ..., B] i32.
 //
-// Design. One thread per destination cell over all colors. The axis and d
-// are read from device memory, so the host never waits. Candidates are
-// visited in the JAX package's order (own slots, then donor slots); the
-// receiver claims a donor candidate whose cell index equals its own, the
-// owner keeps every candidate the receiver does not claim, and kept
-// candidates are compacted in order into the first nmax slots. Unused slots
-// are written as 0, as the JAX package's merge leaves them. The cell index
-// is floor((x + L/2) * f32(1/w)): a reciprocal multiply, never a division.
-// Results go to second buffers; a cell that keeps more than nmax candidates
-// raises the overflow flag.
+// Design. One block per tile of kTile consecutive destination cells of one
+// color, one thread per cell. The axis and d are read from device memory,
+// so the host never waits. A thread first reads its own and its donor
+// cell's occupancies, then stages both slabs' live slots, every plane, in
+// shared memory with asynchronous copies (cp.async), all in flight before
+// any is used; one (plane, slot) row of the tile is kTile contiguous floats
+// in device memory and in shared memory. It then merges from shared memory
+// in the JAX package's order (own slots, then donor slots): the receiver
+// claims a donor candidate whose cell index equals its own, the owner keeps
+// every candidate the receiver does not claim, and kept candidates are
+// compacted in order into the first nmax rows, in place (a kept candidate
+// never lands after the row it came from). Last, the rows go out
+// coalesced, every row of the output tile, with unused slots written as 0,
+// as the JAX package's merge leaves them. The cell index is
+// floor((x + L/2) * f32(1/w)): a reciprocal multiply, never a division.
+// Results go to second buffers; a cell that keeps more than nmax
+// candidates raises the overflow flag.
 //
 // Bound. Each slot is read once and written once: device-memory bandwidth
-// bounds the kernel (2 x 23 MB for 2D disks at N = 1,048,576, nmax 7;
-// 2 x 21 MB for 3D LJ at N = 1,000,000, nmax 24; 2 x 25 MB for the
-// Kob-Andersen mixture at N = 1,000,000, nmax 34, 4 planes).
+// bounds the kernel (2D disks at N = 1,048,576, nmax 7: 8.4 MB of live
+// slots read, 23 MB written; 3D LJ at N = 1,000,000, nmax 24: 12 MB and
+// 21 MB; the Kob-Andersen mixture at N = 1,000,000, nmax 34, 4 planes: 16
+// MB and 25 MB). The kernel takes 2.6-4 times its bound: a thread's walk
+// over its cell's candidates, at the few warps an SM that the staged slabs
+// leave room for.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+constexpr int kTile = 32;  // destination cells a block
 
 __device__ __forceinline__ int floor_half(int t) {  // floor(t / 2)
   return t >= 0 ? t / 2 : -((1 - t) / 2);
@@ -67,23 +80,39 @@ __device__ __forceinline__ float seam_guard(float wrapped, float x,
   return __fadd_rn(wrapped, x > 0.f ? box_l : -box_l);
 }
 
+// Stage rows [k * nmax + s] (s < n) of a cell's slab, every plane, into
+// the thread's column of a shared tile: asynchronous 4-byte copies.
+template <int NP>
+__device__ __forceinline__ void stage(float* col, const float* src, int n,
+                                      int nmax, size_t plane, int P) {
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    for (int s = 0; s < n; ++s) {
+      __pipeline_memcpy_async(col + (k * nmax + s) * kTile,
+                              src + k * plane + static_cast<size_t>(s) * P,
+                              sizeof(float));
+    }
+  }
+}
+
 // The plane count is a template parameter: a runtime count leaves the plane
 // loops rolled, which slowed the single-species shifts.
 template <int DIM, int NP>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kTile)
 shift_kernel(const float* __restrict__ pos, const int* __restrict__ occ,
              float* __restrict__ pos_out, int* __restrict__ occ_out,
              int* __restrict__ overflow, const int* __restrict__ axis_p,
              const float* __restrict__ d_p, int B, int nmax, int cps,
-             float box_l, float half_l, float inv_w) {
-  constexpr int kColors = 1 << DIM;
+             int tiles, float box_l, float half_l, float inv_w) {
+  // Own tile [NP][nmax][kTile], then donor tile [NP][nmax][kTile].
+  extern __shared__ float tiles_smem[];
   int P = 1;
 #pragma unroll
   for (int k = 0; k < DIM; ++k) P *= B;
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= kColors * P) return;
-  const int color = gid / P;
-  const int cell = gid - color * P;
+  const int color = blockIdx.x / tiles;
+  const int cell = (blockIdx.x - color * tiles) * kTile + threadIdx.x;
+  if (cell >= P) return;  // the kernel has no block barrier
+  const int gid = color * P + cell;
   const int axis = *axis_p;
   const float d = *d_p;
   // Block index and row-major stride of this cell along the shift axis
@@ -113,23 +142,26 @@ shift_kernel(const float* __restrict__ pos, const int* __restrict__ occ,
 
   const size_t plane = static_cast<size_t>(nmax) * P;
   const size_t cstride = NP * plane;
-  const float* own = pos + color * cstride + cell;
-  const float* don = pos + src * cstride + don_cell;
   const int own_n = occ[gid];
   const int don_n = occ[src * P + don_cell];
-  float* out = pos_out + color * cstride + cell;
+  float* own_t = tiles_smem + threadIdx.x;  // row r at own_t[r * kTile]
+  float* don_t = own_t + NP * nmax * kTile;
+  stage<NP>(own_t, pos + color * cstride + cell, own_n, nmax, plane, P);
+  stage<NP>(don_t, pos + src * cstride + don_cell, don_n, nmax, plane, P);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
 
+  // Merge, in place in the own tile: row `count` is never past the row
+  // the candidate came from.
   int count = 0;
-  for (int j = 0; j < 2 * nmax; ++j) {
-    const bool is_own = j < nmax;
-    const int slot = is_own ? j : j - nmax;
-    if (slot >= (is_own ? own_n : don_n)) continue;
-    const float* c = is_own ? own : don;
+  for (int j = 0; j < own_n + don_n; ++j) {
+    const bool is_own = j < own_n;
+    const float* c = is_own ? own_t + j * kTile : don_t + (j - own_n) * kTile;
     float x[DIM], wr[DIM];
     float xa = 0.f;
 #pragma unroll
     for (int k = 0; k < DIM; ++k) {
-      x[k] = c[k * plane + slot * P];
+      x[k] = c[k * nmax * kTile];
       wr[k] = wrap_into_box(k == axis ? __fsub_rn(x[k], d) : x[k], half_l,
                             box_l);
       if (k == axis) xa = wr[k];
@@ -139,42 +171,64 @@ shift_kernel(const float* __restrict__ pos, const int* __restrict__ occ,
     const bool keep = is_own ? ck != recv_k : ck == my_k;
     if (keep) {
       if (count < nmax) {
+        float* out = own_t + count * kTile;
         // A donor slot's shift-axis coordinate really crosses cells; every
         // other coordinate stays in its cell and is seam-guarded.
 #pragma unroll
         for (int k = 0; k < DIM; ++k) {
           const bool moves = !is_own && k == axis;
-          out[k * plane + count * P] =
+          out[k * nmax * kTile] =
               moves ? wr[k] : seam_guard(wr[k], x[k], half_l, box_l);
         }
 #pragma unroll
         for (int k = DIM; k < NP; ++k) {
-          out[k * plane + count * P] = c[k * plane + slot * P];
+          out[k * nmax * kTile] = c[k * nmax * kTile];
         }
       }
       ++count;
     }
   }
-  for (int slot = count; slot < nmax; ++slot) {
+
+  // The output tile, row by row: a warp writes kTile contiguous floats.
+  const int kept = min(count, nmax);
+  float* out = pos_out + color * cstride + cell;
 #pragma unroll
-    for (int k = 0; k < NP; ++k) out[k * plane + slot * P] = 0.f;
+  for (int k = 0; k < NP; ++k) {
+    for (int s = 0; s < nmax; ++s) {
+      out[k * plane + static_cast<size_t>(s) * P] =
+          s < kept ? own_t[(k * nmax + s) * kTile] : 0.f;
+    }
   }
-  occ_out[gid] = min(count, nmax);
+  occ_out[gid] = kept;
   if (count > nmax) atomicOr(overflow, 1);
 }
 
 template <int DIM, int NP>
-void launch(const float* pos, const int* occ, float* pos_out, int* occ_out,
-            int* overflow, const int* axis, const float* d, int B, int nmax,
-            int cps, float box_l, float half_l, float inv_w,
-            cudaStream_t stream) {
-  const int threads = 128;
-  int cells = 1;
-  for (int k = 0; k < DIM; ++k) cells *= 2 * B;  // all colors
-  const int blocks = (cells + threads - 1) / threads;
-  shift_kernel<DIM, NP><<<blocks, threads, 0, stream>>>(
-      pos, occ, pos_out, occ_out, overflow, axis, d, B, nmax, cps, box_l,
-      half_l, inv_w);
+int launch(const float* pos, const int* occ, float* pos_out, int* occ_out,
+           int* overflow, const int* axis, const float* d, int B, int nmax,
+           int cps, float box_l, float half_l, float inv_w,
+           cudaStream_t stream) {
+  static int smem_allowed = 0;  // dynamic shared memory allowed so far
+  const int smem = 2 * NP * nmax * kTile * static_cast<int>(sizeof(float));
+  if (smem > smem_allowed) {
+    // Above 48 KB a block's dynamic shared memory must be allowed first.
+    cudaError_t err = cudaFuncSetAttribute(
+        shift_kernel<DIM, NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(
+        shift_kernel<DIM, NP>, cudaFuncAttributePreferredSharedMemoryCarveout,
+        static_cast<int>(cudaSharedmemCarveoutMaxShared));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_allowed = smem;
+  }
+  int P = 1;
+  for (int k = 0; k < DIM; ++k) P *= B;
+  const int tiles = (P + kTile - 1) / kTile;
+  shift_kernel<DIM, NP><<<(1 << DIM) * tiles, kTile, smem, stream>>>(
+      pos, occ, pos_out, occ_out, overflow, axis, d, B, nmax, cps, tiles,
+      box_l, half_l, inv_w);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -195,19 +249,17 @@ extern "C" int mcjax_shift(void* pos, void* occ, void* pos_out, void* occ_out,
   auto* dd = static_cast<const float*>(d);
   const int extra = n_planes - dim;
   if (dim == 2 && extra == 0) {
-    launch<2, 2>(p, o, po, oo, ov, ax, dd, B, nmax, cps, box_l, half_l,
-                 inv_w, s);
+    return launch<2, 2>(p, o, po, oo, ov, ax, dd, B, nmax, cps, box_l,
+                        half_l, inv_w, s);
   } else if (dim == 2 && extra == 1) {
-    launch<2, 3>(p, o, po, oo, ov, ax, dd, B, nmax, cps, box_l, half_l,
-                 inv_w, s);
+    return launch<2, 3>(p, o, po, oo, ov, ax, dd, B, nmax, cps, box_l,
+                        half_l, inv_w, s);
   } else if (dim == 3 && extra == 0) {
-    launch<3, 3>(p, o, po, oo, ov, ax, dd, B, nmax, cps, box_l, half_l,
-                 inv_w, s);
+    return launch<3, 3>(p, o, po, oo, ov, ax, dd, B, nmax, cps, box_l,
+                        half_l, inv_w, s);
   } else if (dim == 3 && extra == 1) {
-    launch<3, 4>(p, o, po, oo, ov, ax, dd, B, nmax, cps, box_l, half_l,
-                 inv_w, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch<3, 4>(p, o, po, oo, ov, ax, dd, B, nmax, cps, box_l,
+                        half_l, inv_w, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,40 +1,95 @@
-// One color sub-step of the checkerboard hard-disk Metropolis sweep (2D).
+// Color sub-steps of the checkerboard hard-disk Metropolis sweep (2D).
 //
-// Replaces the move chain of the TPU kernel
-// mcjax/ops/pallas_ring.py::ring_sweep_onecall (body:
-// mcjax/ops/pallas_sweep.py::_make_kernel) in its 2D, hard-core, host-random
-// form; one launch does one color, so a sweep is four launches. Plain
-// version: mcjax_torch/ops/cuda_substep.py::color_substep.
+// Replaces the TPU kernel mcjax/ops/pallas_ring.py::ring_sweep_onecall
+// (body: mcjax/ops/pallas_sweep.py::_make_kernel) in its 2D, hard-core,
+// host-random form, and with a range of one sub-step the 2D form of
+// mcjax/ops/pallas_ring.py::ring_color_substep. One launch runs sub-steps
+// [start, start + n) of a sweep, as ring_sweep_onecall runs all of them in
+// one call; sub-step j works on color perm[j]. Plain version:
+// mcjax_torch/ops/cuda_substep.py::color_substep, once per sub-step.
 //
 // Layout (the JAX package's color-blocked slab, P = H*W cells per color):
-//   pos[color, 2, nmax, H, W] f32, occ[color, H, W] i32,
-//   pick_u[n_moves, H, W] f32, disp[n_moves, 2, H, W] f32.
+//   pos[color, 2, nmax, H, W] f32, occ[color, H, W] i32; for sub-step j
+//   pick_u[n_moves, H, W] f32 and disp[n_moves, 2, H, W] f32 (separate
+//   tensors, their pointers passed by value); counts[n, 2] i64, added to:
+//   accepted and proposed moves of each sub-step; stats[0] i64, added to:
+//   cells that took the overflow pass.
 //
-// Design. One thread owns one cell of the active color (read from perm[sub]
-// in device memory, so the host never waits). Its own slots and the 8
-// frozen neighbor cells (nmax slots each, pre-unwrapped across the periodic
-// box by +-L as neighbor_stack does) sit in registers for all n_moves
-// moves; empty neighbor slots hold a far-away sentinel, whose squared
-// distance overflows to +inf and never counts as an overlap. Random inputs
-// are read at [m, cell], so neighboring threads load neighboring addresses.
+// Design. A persistent grid, co-resident by a cooperative launch (sized
+// from the occupancy of this kernel and the SM count, at most one thread a
+// cell); threads take the cells of the active color by a grid-stride loop,
+// and a grid barrier separates consecutive sub-steps, since sub-step j + 1
+// reads the slots sub-step j wrote. After that barrier pos is read through
+// the coherent path only (no __ldg, no const __restrict__ on pos).
+// One thread owns one cell. It reads its frozen neighbor slots once, pre-
+// unwrapped across the periodic box by +-L as neighbor_stack does, and
+// keeps only the ones whose box distance to its cell is within the
+// diameter, grown as cuda_substep.cull_constants grows a cutoff: a dropped
+// slot fails r2 < dia2 from every position a mover can take without being
+// rejected as out of its cell, so the decisions, and the bits, are those
+// of testing every slot. Own slots and the kept frozen slots sit in shared
+// memory as float2, one list (own, then frozen), slot-major so that a
+// warp's reads are conflict free, up to kFrozenCap frozen slots a thread.
+// At phi 0.5 a cell keeps about 7 frozen slots, so a move tests about 9
+// slots where testing all of them takes 63 (nmax 7); the mover's own slot
+// is parked far away during its test, so one loop with no branch tests the
+// list. A cell whose kept slots exceed the capacity runs its moves apart,
+// reading its frozen slots from device memory on every move (the overflow
+// pass, counted in stats[0]), which keeps the main loop lean in registers.
+// The draws of the next kAhead moves are in flight in a ring in shared
+// memory (cp.async), where they take no registers. Accepted and proposed
+// counts are reduced per warp and per block and added to counts[j] with
+// 64-bit atomics.
 //
-// Bound. The random tensors are 12 bytes per cell per move: 78.6 MB per
-// sub-step at N = 1,048,576 and n_moves = 64, against 23 MB of state, so
-// device-memory bandwidth bounds the kernel. Drawing the numbers inside the
-// kernel (a counter-based Philox) removes those bytes; that is later work.
+// Bound. The random inputs are 12 bytes per cell per move: 78.6 MB per
+// sub-step at N = 1,048,576 and n_moves = 64, against 17 MB of state read
+// and written once, so device-memory bandwidth bounds the work (about 0.1
+// ms a sweep's launch). The kernel takes about 3.8 times that: the move
+// loop's issue rate and shared-memory loads, at the 24 warps an SM that
+// 102,400 cells give, set its pace. Drawing the numbers inside the kernel
+// (a counter-based Philox) removes the draws' bytes; that is later work.
 //
 // Floating point. Built with --fmad=false; the only fused multiply-adds are
 // the two XLA on the CPU forms (the squared distance and the cell lower
 // bound), written out with __fmaf_rn, so results match the JAX package bit
-// for bit.
+// for bit. Pick, proposal, out-of-cell and overlap tests are the plain
+// version's operations in its order.
 
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kDim = 2;
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 128;      // cells a block
+constexpr int kBlocksPerSm = 8;    // launch bounds: at most 64 registers
+constexpr int kFrozenCap = 16;     // kept frozen slots staged a thread
+constexpr int kAhead = 4;          // moves whose draws are in flight
+constexpr int kMaxSubsteps = 4;    // the colors of a 2D sweep
 constexpr int kNeighbors = 8;
-constexpr float kFar = 1.0e30f;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kFar = 1.0e30f;    // a parked slot: r2 overflows to +inf
+
+// The random inputs of each sub-step of a launch: separate tensors.
+struct Draws {
+  const float* pick_u[kMaxSubsteps];
+  const float* disp[kMaxSubsteps];
+};
+
+struct Geometry {
+  int H, W, n_moves;
+  float w, half_l, box_l, dia2;
+  float pad, reach2;  // frozen-slot culling (cuda_substep.cull_constants)
+};
+
+// The cell a thread owns in one sub-step: block indices, color bits, the
+// cell's bounds [lb, hi) and its culling box [lo, up].
+struct Cell {
+  int b0, b1, o0, o1;
+  float lb0, lb1, hi0, hi1, lo0, lo1, up0, up1;
+};
 
 __device__ __forceinline__ int floor_half(int t) {  // floor(t / 2)
   return t >= 0 ? t / 2 : -((1 - t) / 2);
@@ -47,152 +102,382 @@ __device__ __forceinline__ float sq_dist(float a0, float a1, float b0,
   return __fmaf_rn(e1, e1, __fmul_rn(e0, e0));
 }
 
-template <int NMAX>
-__global__ void __launch_bounds__(128)
-substep_kernel(float* __restrict__ pos, const int* __restrict__ occ,
-               const int* __restrict__ perm, int sub,
-               const float* __restrict__ pick_u,
-               const float* __restrict__ disp, int* __restrict__ acc_map,
-               int H, int W, int n_moves, float w, float half_l,
-               float box_l, float dia2) {
-  const int P = H * W;
-  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= P) return;
-  const int b0 = cell / W;
-  const int b1 = cell - b0 * W;
-  const int color = perm[sub];
-  const int o0 = color & 1;
-  const int o1 = (color >> 1) & 1;
-  const size_t plane = static_cast<size_t>(NMAX) * P;  // [nmax, H, W]
-  const size_t cstride = kDim * plane;                  // [2, nmax, H, W]
+__device__ __forceinline__ Cell make_cell(int cell, int color,
+                                          const Geometry& g) {
+  Cell c;
+  c.b0 = cell / g.W;
+  c.b1 = cell - c.b0 * g.W;
+  c.o0 = color & 1;
+  c.o1 = (color >> 1) & 1;
+  c.lb0 = __fmaf_rn(static_cast<float>(2 * c.b0 + c.o0), g.w, -g.half_l);
+  c.lb1 = __fmaf_rn(static_cast<float>(2 * c.b1 + c.o1), g.w, -g.half_l);
+  c.hi0 = __fadd_rn(c.lb0, g.w);
+  c.hi1 = __fadd_rn(c.lb1, g.w);
+  c.lo0 = __fsub_rn(c.lb0, g.pad);
+  c.lo1 = __fsub_rn(c.lb1, g.pad);
+  c.up0 = __fadd_rn(c.hi0, g.pad);
+  c.up1 = __fadd_rn(c.hi1, g.pad);
+  return c;
+}
 
-  // Frozen neighbor slots, in registers.
-  float nx[kNeighbors][NMAX];
-  float ny[kNeighbors][NMAX];
+// Squared box distance of a slot to the culling box, within the reach:
+// the float32 twin is cuda_substep.keep_frozen.
+__device__ __forceinline__ bool keep(const Cell& c, float x0, float x1,
+                                     float reach2) {
+  const float d0 = fmaxf(fmaxf(__fsub_rn(c.lo0, x0), __fsub_rn(x0, c.up0)),
+                         0.f);
+  const float d1 = fmaxf(fmaxf(__fsub_rn(c.lo1, x1), __fsub_rn(x1, c.up1)),
+                         0.f);
+  return __fmaf_rn(d1, d1, __fmul_rn(d0, d0)) <= reach2;
+}
+
+// Calls fn(k, x0, x1) for the k-th kept frozen slot of the cell, in a
+// fixed order (neighbor, then slot); returns the number kept.
+template <int NMAX, class Fn>
+__device__ __forceinline__ int visit_frozen(const float* pos,
+                                            const int* __restrict__ occ,
+                                            const Cell& c, const Geometry& g,
+                                            Fn&& fn) {
+  const int P = g.H * g.W;
+  const size_t plane = static_cast<size_t>(NMAX) * P;  // [nmax, H, W]
+  int kept = 0;
 #pragma unroll
   for (int k = 0; k < kNeighbors; ++k) {
     const int off = k < 4 ? k : k + 1;  // skip the center of the 3x3 block
-    const int t0 = o0 + off / 3 - 1;
-    const int t1 = o1 + off % 3 - 1;
+    const int t0 = c.o0 + off / 3 - 1;
+    const int t1 = c.o1 + off % 3 - 1;
     const int src = (t0 & 1) | ((t1 & 1) << 1);
-    int n0 = b0 + floor_half(t0);
-    int n1 = b1 + floor_half(t1);
+    int n0 = c.b0 + floor_half(t0);
+    int n1 = c.b1 + floor_half(t1);
     float add0 = 0.f, add1 = 0.f;
-    if (n0 < 0) { n0 += H; add0 = -box_l; } else if (n0 >= H) { n0 -= H; add0 = box_l; }
-    if (n1 < 0) { n1 += W; add1 = -box_l; } else if (n1 >= W) { n1 -= W; add1 = box_l; }
-    const int nocc = occ[src * P + n0 * W + n1];
-    const float* base = pos + src * cstride + n0 * W + n1;
-#pragma unroll
-    for (int s = 0; s < NMAX; ++s) {
-      float x0 = kFar, x1 = kFar;
-      if (s < nocc) {
-        x0 = base[s * P];
-        x1 = base[plane + s * P];
-        if (add0 != 0.f) x0 = __fadd_rn(x0, add0);
-        if (add1 != 0.f) x1 = __fadd_rn(x1, add1);
-      }
-      nx[k][s] = x0;
-      ny[k][s] = x1;
+    if (n0 < 0) { n0 += g.H; add0 = -g.box_l; } else if (n0 >= g.H) { n0 -= g.H; add0 = g.box_l; }
+    if (n1 < 0) { n1 += g.W; add1 = -g.box_l; } else if (n1 >= g.W) { n1 -= g.W; add1 = g.box_l; }
+    const int nbr = n0 * g.W + n1;
+    const int nocc = occ[src * P + nbr];
+    const float* base = pos + src * 2 * plane + nbr;
+    for (int s = 0; s < nocc; ++s) {
+      float x0 = base[s * P];
+      float x1 = base[plane + s * P];
+      if (add0 != 0.f) x0 = __fadd_rn(x0, add0);
+      if (add1 != 0.f) x1 = __fadd_rn(x1, add1);
+      if (keep(c, x0, x1, g.reach2)) fn(kept++, x0, x1);
     }
   }
+  return kept;
+}
 
-  // Own cell.
-  const int my_occ = occ[color * P + cell];
-  float* own = pos + color * cstride + cell;
-  float ox[NMAX], oy[NMAX];
-#pragma unroll
-  for (int s = 0; s < NMAX; ++s) {
-    ox[s] = own[s * P];
-    oy[s] = own[plane + s * P];
-  }
-  const float lb0 = __fmaf_rn(static_cast<float>(2 * b0 + o0), w, -half_l);
-  const float lb1 = __fmaf_rn(static_cast<float>(2 * b1 + o1), w, -half_l);
-  const float hi0 = __fadd_rn(lb0, w);
-  const float hi1 = __fadd_rn(lb1, w);
+// A cell whose kept frozen slots overflow the staged capacity: its moves,
+// with the frozen slots read again from device memory on every move (the
+// overflow pass). Kept apart from the kernel's move loop, which stays
+// lean in registers; the decisions are the same.
+template <int NMAX>
+__device__ __noinline__ unsigned overflow_moves(const float* pos,
+                                                const int* __restrict__ occ,
+                                                int cell, int color,
+                                                int my_occ, float2* mine,
+                                                const float* pick_u,
+                                                const float* disp,
+                                                Geometry g) {
+  const Cell c = make_cell(cell, color, g);
+  const int P = g.H * g.W;
   const float occ_f = static_cast<float>(my_occ);
-  const int p_max = my_occ > 0 ? my_occ - 1 : 0;
-
-  int accepted = 0;
-  for (int m = 0; m < n_moves; ++m) {
-    const float u = pick_u[static_cast<size_t>(m) * P + cell];
-    const float dx = disp[(static_cast<size_t>(m) * kDim) * P + cell];
-    const float dy = disp[(static_cast<size_t>(m) * kDim + 1) * P + cell];
-    const int p = min(static_cast<int>(floorf(__fmul_rn(u, occ_f))), p_max);
-    float old0 = 0.f, old1 = 0.f;
-#pragma unroll
-    for (int s = 0; s < NMAX; ++s) {
-      if (s == p) { old0 = ox[s]; old1 = oy[s]; }
+  unsigned accepted = 0;
+  for (int m = 0; m < g.n_moves; ++m) {
+    const size_t at = static_cast<size_t>(m) * P + cell;
+    const float u = __ldg(pick_u + at);
+    const float dx = __ldg(disp + at + static_cast<size_t>(m) * P);
+    const float dy = __ldg(disp + at + static_cast<size_t>(m + 1) * P);
+    const int p = min(static_cast<int>(floorf(__fmul_rn(u, occ_f))),
+                      my_occ - 1);
+    const float2 old = mine[p * kThreads];
+    const float new0 = __fadd_rn(old.x, dx);
+    const float new1 = __fadd_rn(old.y, dy);
+    if (new0 < c.lb0 || new0 >= c.hi0 || new1 < c.lb1 || new1 >= c.hi1) {
+      continue;
     }
-    const float new0 = __fadd_rn(old0, dx);
-    const float new1 = __fadd_rn(old1, dy);
-    const bool oob = new0 < lb0 || new0 >= hi0 || new1 < lb1 || new1 >= hi1;
     bool overlap = false;
-#pragma unroll
-    for (int s = 0; s < NMAX; ++s) {
-      if (s < my_occ && s != p) {
-        overlap |= sq_dist(new0, new1, ox[s], oy[s]) < dia2;
-      }
+    for (int s = 0; s < my_occ; ++s) {
+      const float2 o = mine[s * kThreads];
+      overlap |= s != p && sq_dist(new0, new1, o.x, o.y) < g.dia2;
     }
-#pragma unroll
-    for (int k = 0; k < kNeighbors; ++k) {
-#pragma unroll
-      for (int s = 0; s < NMAX; ++s) {
-        overlap |= sq_dist(new0, new1, nx[k][s], ny[k][s]) < dia2;
-      }
-    }
-    if (my_occ > 0 && !oob && !overlap) {
-#pragma unroll
-      for (int s = 0; s < NMAX; ++s) {
-        if (s == p) { ox[s] = new0; oy[s] = new1; }
-      }
+    visit_frozen<NMAX>(pos, occ, c, g, [&](int, float x0, float x1) {
+      overlap |= sq_dist(new0, new1, x0, x1) < g.dia2;
+    });
+    if (!overlap) {
+      mine[p * kThreads] = make_float2(new0, new1);
       ++accepted;
     }
   }
-
-#pragma unroll
-  for (int s = 0; s < NMAX; ++s) {
-    own[s * P] = ox[s];
-    own[plane + s * P] = oy[s];
-  }
-  acc_map[cell] = accepted;
+  return accepted;
 }
 
 template <int NMAX>
-void launch(float* pos, const int* occ, const int* perm, int sub,
-            const float* pick_u, const float* disp, int* acc_map, int H,
-            int W, int n_moves, float w, float half_l, float box_l,
-            float dia2, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (H * W + threads - 1) / threads;
-  substep_kernel<NMAX><<<blocks, threads, 0, stream>>>(
-      pos, occ, perm, sub, pick_u, disp, acc_map, H, W, n_moves, w, half_l,
-      box_l, dia2);
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+substeps_kernel(float* pos, const int* __restrict__ occ,
+                const int* __restrict__ perm, int start, int n, Draws draws,
+                unsigned long long* __restrict__ counts,
+                unsigned long long* __restrict__ stats, Geometry g) {
+  // Slot s of a thread at slots[s * kThreads + threadIdx.x], NMAX +
+  // kFrozenCap rows: the own slots, then the kept frozen slots; after them
+  // the ring of draws, kAhead + 1 moves of (pick_u, dx, dy).
+  extern __shared__ float2 slots[];
+  __shared__ unsigned long long block_sum[2];
+  const int tid = threadIdx.x;
+  float2* mine = slots + tid;
+  float* ring = reinterpret_cast<float*>(slots + (NMAX + kFrozenCap) *
+                                                     kThreads) + tid;
+  const int P = g.H * g.W;
+  const size_t plane = static_cast<size_t>(NMAX) * P;
+  if (tid == 0) block_sum[0] = block_sum[1] = 0;
+  __syncthreads();
+
+  for (int j = 0; j < n; ++j) {
+    if (j > 0) cg::this_grid().sync();  // sub-step j reads j - 1's slots
+    const int color = perm[start + j];
+    const float* pick_u = draws.pick_u[j];
+    const float* disp = draws.disp[j];
+    unsigned accepted = 0, proposed = 0;
+    for (int cell = blockIdx.x * kThreads + tid; cell < P;
+         cell += gridDim.x * kThreads) {
+      const int my_occ = occ[color * P + cell];
+      if (my_occ == 0 || g.n_moves == 0) continue;  // no move is taken
+      proposed += g.n_moves;
+      // The draws of the first kAhead moves go in flight first.
+      const int last = g.n_moves - 1;
+      const float* pu = pick_u + cell;
+      const float* dp = disp + cell;
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) {
+        const unsigned at = min(k, last) * P;
+        __pipeline_memcpy_async(ring + 3 * k * kThreads, pu + at, 4);
+        __pipeline_memcpy_async(ring + (3 * k + 1) * kThreads, dp + 2 * at,
+                                4);
+        __pipeline_memcpy_async(ring + (3 * k + 2) * kThreads,
+                                dp + 2 * at + P, 4);
+        __pipeline_commit();
+      }
+      float* own = pos + color * 2 * plane + cell;
+      for (int s = 0; s < my_occ; ++s) {
+        mine[s * kThreads] = make_float2(own[s * P], own[plane + s * P]);
+      }
+      // The kept frozen slots follow the own slots, so one loop tests both.
+      const Cell c = make_cell(cell, color, g);
+      float2* frozen = mine + my_occ * kThreads;
+      const int kept = visit_frozen<NMAX>(
+          pos, occ, c, g, [&](int k, float x0, float x1) {
+            if (k < kFrozenCap) frozen[k * kThreads] = make_float2(x0, x1);
+          });
+      if (kept > kFrozenCap) {
+        atomicAdd(&stats[0], 1ull);
+        __pipeline_wait_prior(0);
+        accepted += overflow_moves<NMAX>(pos, occ, cell, color, my_occ,
+                                         mine, pick_u, disp, g);
+      } else {
+        const float occ_f = static_cast<float>(my_occ);
+        const int n_test = my_occ + kept;
+        // Offsets of move m + kAhead's draws, and the ring slots of the
+        // move read and the move refilled.
+        unsigned next = min(kAhead, last) * P;
+        int r_slot = 0, w_slot = kAhead;
+        for (int m = 0; m < g.n_moves; ++m) {
+          // Move m's draws have arrived; move m + kAhead's go in flight
+          // into the slot that move m - 1 read.
+          __pipeline_wait_prior(kAhead - 1);
+          const float* r = ring + 3 * r_slot * kThreads;
+          const float u = r[0], dx = r[kThreads], dy = r[2 * kThreads];
+          float* w = ring + 3 * w_slot * kThreads;
+          __pipeline_memcpy_async(w, pu + next, 4);
+          __pipeline_memcpy_async(w + kThreads, dp + 2 * next, 4);
+          __pipeline_memcpy_async(w + 2 * kThreads, dp + 2 * next + P, 4);
+          __pipeline_commit();
+          if (m + kAhead < last) next += P;
+          r_slot = r_slot == kAhead ? 0 : r_slot + 1;
+          w_slot = w_slot == kAhead ? 0 : w_slot + 1;
+          const int p = min(static_cast<int>(floorf(__fmul_rn(u, occ_f))),
+                            my_occ - 1);
+          const float2 old = mine[p * kThreads];
+          const float new0 = __fadd_rn(old.x, dx);
+          const float new1 = __fadd_rn(old.y, dy);
+          if (new0 < c.lb0 || new0 >= c.hi0 || new1 < c.lb1 ||
+              new1 >= c.hi1) {
+            continue;  // rejected whatever it overlaps
+          }
+          // The mover's own slot is parked far away while the others are
+          // tested (its squared distance overflows to +inf), so the loop
+          // needs no test of s != p.
+          mine[p * kThreads] = make_float2(kFar, kFar);
+          bool overlap = false;
+#pragma unroll 4
+          for (int s = 0; s < n_test; ++s) {
+            const float2 o = mine[s * kThreads];
+            overlap |= sq_dist(new0, new1, o.x, o.y) < g.dia2;
+          }
+          if (!overlap) {
+            mine[p * kThreads] = make_float2(new0, new1);
+            ++accepted;
+          } else {
+            mine[p * kThreads] = old;
+          }
+        }
+      }
+      __pipeline_wait_prior(0);  // the ring is free for the next cell
+      for (int s = 0; s < my_occ; ++s) {
+        const float2 o = mine[s * kThreads];
+        own[s * P] = o.x;
+        own[plane + s * P] = o.y;
+      }
+    }
+    // Counts: per warp, per block, then one 64-bit atomic a block.
+    accepted = __reduce_add_sync(kFull, accepted);
+    proposed = __reduce_add_sync(kFull, proposed);
+    if ((tid & 31) == 0) {
+      atomicAdd(&block_sum[0], static_cast<unsigned long long>(accepted));
+      atomicAdd(&block_sum[1], static_cast<unsigned long long>(proposed));
+    }
+    __syncthreads();
+    if (tid == 0) {
+      atomicAdd(&counts[2 * j], block_sum[0]);
+      atomicAdd(&counts[2 * j + 1], block_sum[1]);
+      block_sum[0] = block_sum[1] = 0;
+    }
+  }
 }
+
+// Launch shape for one nmax on the current device.
+struct Shape {
+  int smem = 0;          // dynamic shared memory a block
+  int blocks_per_sm = 0;
+  int sms = 0;
+  int regs = 0;
+  int static_smem = 0;
+  int local_bytes = 0;
+};
+
+template <int NMAX>
+int shape_for(Shape* out) {
+  static Shape cache;
+  static int cache_dev = -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (cache_dev == dev) {
+    *out = cache;
+    return 0;
+  }
+  Shape s;
+  s.smem = ((NMAX + kFrozenCap) * 2 + 3 * (kAhead + 1)) * kThreads *
+           static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(substeps_kernel<NMAX>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             static_cast<int>(cudaSharedmemCarveoutMaxShared));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, substeps_kernel<NMAX>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &s.blocks_per_sm, substeps_kernel<NMAX>, kThreads, s.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  s.regs = fa.numRegs;
+  s.static_smem = static_cast<int>(fa.sharedSizeBytes);
+  s.local_bytes = static_cast<int>(fa.localSizeBytes);
+  cache = s;
+  cache_dev = dev;
+  *out = s;
+  return 0;
+}
+
+// The cooperative grid: every block co-resident, at most one thread a cell.
+int grid_blocks(const Shape& s, int cells) {
+  return min(s.blocks_per_sm * s.sms, (cells + kThreads - 1) / kThreads);
+}
+
+template <int NMAX>
+int launch(float* pos, const int* occ, const int* perm, int start, int n,
+           const Draws& draws, unsigned long long* counts,
+           unsigned long long* stats, const Geometry& g,
+           cudaStream_t stream) {
+  Shape s;
+  const int err = shape_for<NMAX>(&s);
+  if (err != 0) return err;
+  const int blocks = grid_blocks(s, g.H * g.W);
+  if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  Draws d = draws;
+  Geometry geo = g;
+  void* args[] = {&pos, &occ, &perm, &start, &n, &d, &counts, &stats, &geo};
+  // A launch the runtime refuses returns its error; nothing falls back.
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(substeps_kernel<NMAX>), dim3(blocks),
+      dim3(kThreads), args, static_cast<size_t>(s.smem), stream));
+}
+
+#define MCJAX_NMAX_CASES(X)                                               \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13)    \
+  X(14) X(15) X(16)
 
 }  // namespace
 
-extern "C" int mcjax_substep_2d(void* pos, void* occ, void* perm, int sub,
-                                void* pick_u, void* disp, void* acc_map,
+// The kernel's shape at this nmax for `cells` cells a color on the current
+// device: out[0..6] = registers a thread, static and dynamic shared memory
+// a block (bytes), local memory a thread (bytes), resident warps an SM,
+// frozen slots staged a thread, and the blocks of the cooperative grid.
+extern "C" int mcjax_substep_2d_shape(int nmax, int cells, void* out) {
+  Shape s;
+  int err = static_cast<int>(cudaErrorInvalidValue);
+  switch (nmax) {
+#define MCJAX_CASE(N) case N: err = shape_for<N>(&s); break;
+    MCJAX_NMAX_CASES(MCJAX_CASE)
+#undef MCJAX_CASE
+    default:
+      break;
+  }
+  if (err != 0) return err;
+  int* o = static_cast<int*>(out);
+  o[0] = s.regs;
+  o[1] = s.static_smem;
+  o[2] = s.smem;
+  o[3] = s.local_bytes;
+  o[4] = s.blocks_per_sm * kThreads / 32;
+  o[5] = kFrozenCap;
+  o[6] = grid_blocks(s, cells);
+  return 0;
+}
+
+// Sub-steps [start, start + n) of a sweep in one cooperative launch.
+// pick_u and disp point to n device pointers each (host arrays); counts
+// (int64 [n, 2]) must be zeroed by the caller.
+extern "C" int mcjax_substep_2d(void* pos, void* occ, void* perm, int start,
+                                int n, void* const* pick_u,
+                                void* const* disp, void* counts, void* stats,
                                 int H, int W, int nmax, int n_moves, float w,
                                 float half_l, float box_l, float dia2,
-                                void* stream) {
+                                float pad, float reach2, void* stream) {
+  if (n < 1 || n > kMaxSubsteps || start < 0 || start + n > kMaxSubsteps ||
+      n_moves < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Draws d{};
+  for (int j = 0; j < n; ++j) {
+    d.pick_u[j] = static_cast<const float*>(pick_u[j]);
+    d.disp[j] = static_cast<const float*>(disp[j]);
+  }
+  const Geometry g{H, W, n_moves, w, half_l, box_l, dia2, pad, reach2};
   auto* p = static_cast<float*>(pos);
   auto* o = static_cast<const int*>(occ);
   auto* pm = static_cast<const int*>(perm);
-  auto* pu = static_cast<const float*>(pick_u);
-  auto* dp = static_cast<const float*>(disp);
-  auto* am = static_cast<int*>(acc_map);
+  auto* c = static_cast<unsigned long long*>(counts);
+  auto* st = static_cast<unsigned long long*>(stats);
   auto s = static_cast<cudaStream_t>(stream);
+  int err = static_cast<int>(cudaErrorInvalidValue);
   switch (nmax) {
 #define MCJAX_CASE(N) \
-  case N: launch<N>(p, o, pm, sub, pu, dp, am, H, W, n_moves, w, half_l, box_l, dia2, s); break;
-    MCJAX_CASE(1) MCJAX_CASE(2) MCJAX_CASE(3) MCJAX_CASE(4)
-    MCJAX_CASE(5) MCJAX_CASE(6) MCJAX_CASE(7) MCJAX_CASE(8)
-    MCJAX_CASE(9) MCJAX_CASE(10) MCJAX_CASE(11) MCJAX_CASE(12)
-    MCJAX_CASE(13) MCJAX_CASE(14) MCJAX_CASE(15) MCJAX_CASE(16)
+  case N: err = launch<N>(p, o, pm, start, n, d, c, st, g, s); break;
+    MCJAX_NMAX_CASES(MCJAX_CASE)
 #undef MCJAX_CASE
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      break;
   }
+  if (err != 0) return err;
   return static_cast<int>(cudaGetLastError());
 }

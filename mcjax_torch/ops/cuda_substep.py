@@ -1,12 +1,14 @@
 """Color sub-step: plain PyTorch version and the wrappers of its CUDA kernels.
 
-Three kernels compute one color sub-step on the card; ``substep`` picks one
+Three kernels compute color sub-steps on the card; ``substeps`` picks one
 by (dim, model) and raises for any other configuration:
 
-* ``csrc/substep.cu``, 2D hard disks: one thread owns one cell. It stands
-  for ``mcjax/ops/pallas_ring.py::ring_sweep_onecall`` and the 2D form of
-  ``ring_color_substep`` (body ``mcjax/ops/pallas_sweep.py::_make_kernel``),
-  host-random form.
+* ``csrc/substep.cu``, 2D hard disks: one cooperative launch runs a range
+  of sub-steps of a sweep (all four in ``mc_sweep``), with a grid barrier
+  between them; one thread owns one cell, with its culled frozen slots in
+  shared memory. It stands for ``mcjax/ops/pallas_ring.py::
+  ring_sweep_onecall`` and the 2D form of ``ring_color_substep`` (body
+  ``mcjax/ops/pallas_sweep.py::_make_kernel``), host-random form.
 * ``csrc/substep_lj.cu``, 3D Lennard-Jones: one warp owns one cell, with the
   frozen-neighbor energy cache; the frozen slots that can reach the cell
   are staged in shared memory (``cull_constants``) and only pairs within
@@ -24,8 +26,9 @@ by (dim, model) and raises for any other configuration:
 ``color_substep`` below is the plain version of the first two, a twin of
 ``mcjax.ops.sweep.color_substep`` (hard-core and energetic branches);
 ``mcjax_torch.ops.mixture.color_substep_mixture`` is the third's. On a CPU
-tensor ``substep`` runs the plain version; on a CUDA tensor it launches a
-kernel.
+tensor ``substeps`` runs the plain version once per sub-step; on a CUDA
+tensor it launches the 2D kernel once for the range, or an energetic
+kernel once per sub-step.
 """
 
 from __future__ import annotations
@@ -45,8 +48,8 @@ from mcjax_torch.models.potentials import (HardSphere, LennardJones, Potential,
 from mcjax_torch.ops import cells
 
 # Largest cell capacity each kernel is instantiated for: the disk kernel
-# keeps a cell in a thread's registers, the LJ kernel one slot per lane, the
-# mixture kernel two.
+# stages a cell's own slots in a thread's shared memory, the LJ kernel one
+# slot per lane, the mixture kernel two.
 KERNEL_NMAX = 16
 KERNEL_NMAX_LJ = 32
 KERNEL_NMAX_MIX = 64
@@ -54,10 +57,13 @@ KERNEL_NMAX_MIX = 64
 LIB = CudaLibrary("substep", {
     "mcjax_substep_2d": [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float,
         ctypes.c_void_p],
+    "mcjax_substep_2d_shape": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 })
 
 LIB_LJ = CudaLibrary("substep_lj", {
@@ -88,16 +94,17 @@ LIB_MIX = CudaLibrary("substep_mix", {
     "mcjax_substep_mix3d_shape": [ctypes.c_int, ctypes.c_void_p],
 })
 
-# Exact culling of frozen slots in the energetic kernels. A frozen slot is
+# Exact culling of frozen slots in the sub-step kernels. A frozen slot is
 # staged only if its box distance to the own cell, the cell grown by
 # ``cull_constants``'s pad on every side, is within the largest cutoff
-# grown by CULL_REL. The pad covers own slots that sit outside their cell
-# after a grid shift (``validate_state`` allows 1e-5 + 4 float32 ulps of
-# L/2; the pad is CULL_PAD_ABS + CULL_PAD_ULPS ulps). CULL_REL covers the
-# float32 rounding of the squared distance, the box distance and the
-# mixture's cutoff test (a few ulps, against 1e-4). So a dropped slot is
-# beyond every cutoff from every point a mover can hold, and would have
-# added exactly 0. The mixture kernel's candidate test grows each pair's
+# (the diameter for hard disks) grown by CULL_REL. The pad covers own
+# slots that sit outside their cell after a grid shift (``validate_state``
+# allows 1e-5 + 4 float32 ulps of L/2; the pad is CULL_PAD_ABS +
+# CULL_PAD_ULPS ulps). CULL_REL covers the float32 rounding of the squared
+# distance, the box distance and the mixture's cutoff test (a few ulps,
+# against 1e-4). So a dropped slot is beyond every cutoff from every point
+# a mover can hold, and would have added exactly 0 (or, for hard disks,
+# never overlapped). The mixture kernel's candidate test grows each pair's
 # cutoff by the same CULL_REL; the LJ kernel's is its exact r2 <= r_cut^2.
 CULL_REL = 1e-4
 CULL_PAD_ABS = 1e-5
@@ -105,9 +112,10 @@ CULL_PAD_ULPS = 64
 
 
 def cull_constants(cfg: SimConfig, r_cut: float) -> tuple[float, float]:
-    """(pad, reach2) of the frozen-slot culling for largest cutoff
-    ``r_cut``: the own cell grows by ``pad`` on every side, and a slot is
-    kept when its squared box distance is at most ``reach2``."""
+    """(pad, reach2) of the frozen-slot culling for largest cutoff (or
+    hard-core diameter) ``r_cut``: the own cell grows by ``pad`` on every
+    side, and a slot is kept when its squared box distance is at most
+    ``reach2``."""
     ulp = float(np.spacing(np.float32(cfg.box_length / 2.0)))
     pad = CULL_PAD_ABS + CULL_PAD_ULPS * ulp
     return pad, (r_cut * (1.0 + CULL_REL)) ** 2
@@ -116,9 +124,9 @@ def cull_constants(cfg: SimConfig, r_cut: float) -> tuple[float, float]:
 def keep_frozen(cfg: SimConfig, r_cut: float, lower: torch.Tensor,
                 slots: torch.Tensor) -> torch.Tensor:
     """The kernels' culling test in float32, for tests: True where a
-    frozen slot at ``slots`` [..., 3] (unwrapped into the own cell's
-    frame) is staged for the own cell whose lower corner is ``lower`` [3]
-    (float32, as ``cell_lower_bounds`` gives it)."""
+    frozen slot at ``slots`` [..., dim] (unwrapped into the own cell's
+    frame) is staged for the own cell whose lower corner is ``lower``
+    [dim] (float32, as ``cell_lower_bounds`` gives it)."""
     pad, reach2 = cull_constants(cfg, r_cut)
     f32 = torch.float32
     pad_t = torch.tensor(pad, dtype=f32)
@@ -132,7 +140,7 @@ _STATE: dict[torch.device, torch.Tensor] = {}
 
 
 def kernel_state(device: torch.device) -> torch.Tensor:
-    """The energetic kernels' int64 [4] buffer on ``device``: the counters
+    """The sub-step kernels' int64 [4] buffer on ``device``: the counters
     of ``kernel_stats``, then the mixture kernel's cell counter and count
     of finished warps (its persistent grid), which each launch leaves at 0
     for the next; launches on one device run in turn on one stream."""
@@ -145,26 +153,34 @@ def kernel_state(device: torch.device) -> torch.Tensor:
 
 
 def kernel_stats(device: torch.device) -> torch.Tensor:
-    """The energetic kernels' counters on ``device``, int64 [2], added to by
+    """The sub-step kernels' counters on ``device``, int64 [2], added to by
     every launch there: cells whose frozen slots overflowed the shared
-    memory (they take a second pass from device memory), and full pair
-    terms evaluated. Reset with ``.zero_()``."""
+    memory (they take a second pass from device memory; every kernel), and
+    full pair terms evaluated (the energetic kernels). Reset with
+    ``.zero_()``."""
     return kernel_state(device)[:2]
 
 
-def kernel_shape(lib: CudaLibrary, nmax: int) -> dict:
-    """The launch shape of an energetic kernel at ``nmax`` on the current
+def kernel_shape(lib: CudaLibrary, nmax: int, cells: int = 0) -> dict:
+    """The launch shape of a sub-step kernel at ``nmax`` on the current
     device, from the CUDA runtime: registers a thread, static and dynamic
     shared memory a block (bytes), local memory a thread (bytes), resident
-    warps an SM and the staged frozen slots a warp holds."""
-    fn = {"substep_lj": "mcjax_substep_lj3d_shape",
-          "substep_mix": "mcjax_substep_mix3d_shape"}[lib.name]
-    out = (ctypes.c_int * 6)()
-    err = getattr(lib.load(), fn)(nmax, ctypes.addressof(out))
+    warps an SM and the staged frozen slots a warp (energetic kernels) or a
+    thread (2D); for the 2D kernel also the blocks of its cooperative grid
+    at ``cells`` cells a color."""
+    keys = ["registers", "static_smem", "dynamic_smem", "local_bytes",
+            "warps_per_sm", "staged_capacity"]
+    if lib is LIB:
+        fn, args = "mcjax_substep_2d_shape", (nmax, cells)
+        keys.append("grid_blocks")
+    else:
+        fn = {"substep_lj": "mcjax_substep_lj3d_shape",
+              "substep_mix": "mcjax_substep_mix3d_shape"}[lib.name]
+        args = (nmax,)
+    out = (ctypes.c_int * len(keys))()
+    err = getattr(lib.load(), fn)(*args, ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"{lib.name}.{fn}: CUDA error {err}")
-    keys = ("registers", "static_smem", "dynamic_smem", "local_bytes",
-            "warps_per_sm", "staged_capacity")
     return dict(zip(keys, out))
 
 
@@ -345,83 +361,120 @@ def kernel_library(cfg: SimConfig, pot: Potential) -> CudaLibrary:
         "binary LJ mixtures")
 
 
-def substep(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
-            occ: torch.Tensor, perm: torch.Tensor, i: int,
-            pick_u: torch.Tensor, disp: torch.Tensor,
-            acc_u: torch.Tensor | None = None
-            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Sub-step i of a sweep: color perm[i]; updates ``pos`` IN PLACE.
+Draw = tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]
+
+
+def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
+             occ: torch.Tensor, perm: torch.Tensor, draws: list[Draw],
+             start: int = 0
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sub-steps [start, start + n) of a sweep, n = len(draws): sub-step j
+    works on color perm[j] with draws[j - start] = (pick_u, disp, acc_u);
+    updates ``pos`` IN PLACE.
 
     In place is safe: a sub-step writes only its own color block and reads
     the others, and checkerboard neighbors are always other colors. Returns
-    (dE, accepted, proposed) as 0-d tensors (float32, int64, int64) on pos's
-    device; energetic models need ``acc_u``. On a CPU tensor this runs the
-    plain version; on a CUDA tensor it launches the kernel, reading the
-    color from device memory (no host sync). A mixture's ``pos`` carries
-    the species plane after the coordinates (dim + 1 planes).
+    (dE, accepted, proposed) of each sub-step as [n] tensors (float32,
+    int64, int64) on pos's device; energetic models need every ``acc_u``.
+    On a CPU tensor this runs the plain version once per sub-step; on a
+    CUDA tensor the 2D disk kernel runs the range in one launch and the
+    energetic kernels launch once per sub-step, each reading its color
+    from device memory (no host sync). A mixture's ``pos`` carries the
+    species plane after the coordinates (dim + 1 planes).
     """
     bs = cfg.block_shape
     mixture = getattr(pot, "is_mixture", False)
     planes = cfg.dim + 1 if mixture else cfg.dim
+    n = len(draws)
+    if n < 1 or start < 0 or start + n > cfg.n_colors:
+        raise ValueError(f"sub-steps [{start}, {start + n}) outside "
+                         f"[0, {cfg.n_colors})")
     want = {
         "pos": (pos, torch.float32, (cfg.n_colors, planes, cfg.nmax, *bs)),
         "occ": (occ, torch.int32, (cfg.n_colors, *bs)),
         "perm": (perm, torch.int32, (cfg.n_colors,)),
-        "pick_u": (pick_u, torch.float32, (cfg.n_moves, *bs)),
-        "disp": (disp, torch.float32, (cfg.n_moves, cfg.dim, *bs)),
     }
-    if pot.has_energy:
-        if acc_u is None:
-            raise ValueError("an energetic model needs acceptance uniforms")
-        want["acc_u"] = (acc_u, torch.float32, (cfg.n_moves, *bs))
+    for j, (pick_u, disp, acc_u) in enumerate(draws):
+        want[f"pick_u[{j}]"] = (pick_u, torch.float32, (cfg.n_moves, *bs))
+        want[f"disp[{j}]"] = (disp, torch.float32,
+                              (cfg.n_moves, cfg.dim, *bs))
+        if pot.has_energy:
+            if acc_u is None:
+                raise ValueError("an energetic model needs acceptance "
+                                 "uniforms")
+            want[f"acc_u[{j}]"] = (acc_u, torch.float32, (cfg.n_moves, *bs))
     check_tensors(pos.device, want)
-    if not 0 <= i < cfg.n_colors:
-        raise ValueError(f"sub-step index {i} outside [0, {cfg.n_colors})")
-    if pos.device.type == "cpu":
-        color = int(perm[i])
+    dev = pos.device
+    if dev.type == "cpu":
         if mixture:
             # ops.mixture builds on this module, so it is imported here
             from mcjax_torch.ops.mixture import color_substep_mixture
             plain = color_substep_mixture
         else:
             plain = color_substep
-        own_new, de, acc, prop = plain(cfg, pot, color, pos, occ, pick_u,
-                                       disp, acc_u)
-        pos[color] = own_new
+        outs = []
+        for j, draw in enumerate(draws):
+            color = int(perm[start + j])
+            own_new, *out = plain(cfg, pot, color, pos, occ, *draw)
+            pos[color] = own_new
+            outs.append(out)
+        de, acc, prop = (torch.stack(t) for t in zip(*outs))
         return de, acc, prop
     lib = kernel_library(cfg, pot)
-    if pos.device.type != "cuda":
-        raise ValueError(f"no sub-step for device {pos.device}")
-    acc_map = torch.empty(bs, dtype=torch.int32, device=pos.device)
-    if lib is LIB_LJ or lib is LIB_MIX:
-        de_map = torch.empty(bs, dtype=torch.float32, device=pos.device)
-        launch = launch_lj_kernel if lib is LIB_LJ else launch_mix_kernel
-        launch(cfg, pot, pos, occ, perm, i, pick_u, disp, acc_u, de_map,
-               acc_map)
-        de = de_map.sum()
-    else:
-        launch_kernel(cfg, pot, pos, occ, perm, i, pick_u, disp, acc_map)
-        de = torch.zeros((), dtype=torch.float32, device=pos.device)
-    color_occ = occ.index_select(0, perm[i:i + 1])
-    proposed = cfg.n_moves * (color_occ > 0).sum()
-    return de, acc_map.sum(dtype=torch.int64), proposed
+    if dev.type != "cuda":
+        raise ValueError(f"no sub-step for device {dev}")
+    if lib is LIB:
+        counts = torch.zeros((n, 2), dtype=torch.int64, device=dev)
+        launch_kernel(cfg, pot, pos, occ, perm, start,
+                      [d[0] for d in draws], [d[1] for d in draws], counts)
+        de = torch.zeros(n, dtype=torch.float32, device=dev)
+        return de, counts[:, 0], counts[:, 1]
+    de_map = torch.empty((n, *bs), dtype=torch.float32, device=dev)
+    acc_map = torch.empty((n, *bs), dtype=torch.int32, device=dev)
+    launch = launch_lj_kernel if lib is LIB_LJ else launch_mix_kernel
+    for j, (pick_u, disp, acc_u) in enumerate(draws):
+        launch(cfg, pot, pos, occ, perm, start + j, pick_u, disp, acc_u,
+               de_map[j], acc_map[j])
+    color_occ = occ.index_select(0, perm[start:start + n])
+    proposed = cfg.n_moves * (color_occ > 0).flatten(1).sum(1)
+    return (de_map.flatten(1).sum(1),
+            acc_map.flatten(1).sum(1, dtype=torch.int64), proposed)
+
+
+def substep(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
+            occ: torch.Tensor, perm: torch.Tensor, i: int,
+            pick_u: torch.Tensor, disp: torch.Tensor,
+            acc_u: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sub-step i of a sweep, color perm[i]: ``substeps`` with a range of
+    one (one launch on CUDA). Returns (dE, accepted, proposed) as 0-d
+    tensors (float32, int64, int64) on pos's device."""
+    de, acc, prop = substeps(cfg, pot, pos, occ, perm,
+                             [(pick_u, disp, acc_u)], start=i)
+    return de[0], acc[0], prop[0]
 
 
 def launch_kernel(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
-                  occ: torch.Tensor, perm: torch.Tensor, i: int,
-                  pick_u: torch.Tensor, disp: torch.Tensor,
-                  acc_map: torch.Tensor) -> None:
-    """One launch of the 2D disk kernel on inputs ``substep`` has checked:
-    updates pos[perm[i]] in place and writes the per-cell accept counts
-    into ``acc_map`` (int32 [*bs])."""
+                  occ: torch.Tensor, perm: torch.Tensor, start: int,
+                  pick_us: list[torch.Tensor], disps: list[torch.Tensor],
+                  counts: torch.Tensor) -> None:
+    """One cooperative launch of the 2D disk kernel on inputs ``substeps``
+    has checked: sub-steps [start, start + len(pick_us)), in place on pos,
+    adding each sub-step's accepted and proposed moves to ``counts``
+    (int64 [n, 2], zeroed by the caller) and the cells that took the
+    overflow pass to ``kernel_stats``."""
     h, w = cfg.block_shape
+    n = len(pick_us)
+    ptrs = ctypes.c_void_p * n
     LIB.launch(
         "mcjax_substep_2d",
-        pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), i,
-        pick_u.data_ptr(), disp.data_ptr(), acc_map.data_ptr(),
+        pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), start, n,
+        ptrs(*(t.data_ptr() for t in pick_us)),
+        ptrs(*(t.data_ptr() for t in disps)),
+        counts.data_ptr(), kernel_state(pos.device).data_ptr(),
         h, w, cfg.nmax, cfg.n_moves,
         cfg.cell_width, cfg.box_length / 2.0, cfg.box_length,
-        pot.diameter * pot.diameter,
+        pot.diameter * pot.diameter, *cull_constants(cfg, pot.diameter),
         torch.cuda.current_stream(pos.device).cuda_stream)
 
 

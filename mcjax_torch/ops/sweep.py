@@ -4,11 +4,14 @@ One sweep runs the 2^dim color sub-steps in the provider's shuffled order,
 then one random grid shift. A mixture state (a species plane after the
 coordinates) runs through the same loop: ``cuda_substep.substep`` picks the
 mixture sub-step, as the JAX package's ``mc_sweep`` picks
-``color_substep_mixture``, and the shift carries the species plane. On CUDA every sub-step and every shift is one
-launch of a hand-written kernel (``cuda_substep``, ``cuda_shift``); on the
-CPU the same wrappers run their plain PyTorch versions.
+``color_substep_mixture``, and the shift carries the species plane. On
+CUDA the sub-steps and the shift run in hand-written kernels
+(``cuda_substep``, ``cuda_shift``): for 2D disks all sub-steps of a sweep
+are one launch, for the energetic models each sub-step is one, and the
+shift is one; on the CPU the same wrappers run their plain PyTorch
+versions.
 
-A run on CUDA makes no host sync per sweep: the active color, the shift
+A run on CUDA makes no host sync per sweep: the color order, the shift
 axis and distance are device tensors the kernels read, the metrics stay on
 the device and are stacked once at the end.
 """
@@ -45,29 +48,23 @@ def mc_sweep(cfg: SimConfig, pot: Potential, state: SimState,
              randoms: RandomProvider) -> tuple[SimState, SweepMetrics]:
     """One full MC sweep: shuffled color sub-steps, then a grid shift.
 
-    The sub-steps update ``state.pos`` IN PLACE (the caller's state is
-    consumed); the shift writes new buffers, which the returned state holds.
+    The draws of every sub-step are taken first, in sub-step order, then
+    the sub-steps run in one ``cuda_substep.substeps`` call. They update
+    ``state.pos`` IN PLACE (the caller's state is consumed); the shift
+    writes new buffers, which the returned state holds.
     """
     perm, axis, d = randoms.schedule(cfg, state.sweep)
     pos, occ = state.pos, state.occ
-    de = torch.zeros((), dtype=torch.float32, device=pos.device)
-    n_acc = torch.zeros((), dtype=torch.int64, device=pos.device)
-    n_prop = torch.zeros((), dtype=torch.int64, device=pos.device)
-    for i in range(cfg.n_colors):
-        pick_u, disp, acc_u = randoms.substep(cfg, state.sweep, i,
-                                              need_acc=pot.has_energy)
-        de_i, acc, prop = cuda_substep.substep(cfg, pot, pos, occ, perm, i,
-                                               pick_u, disp, acc_u)
-        de = de + de_i
-        n_acc = n_acc + acc
-        n_prop = n_prop + prop
+    draws = [randoms.substep(cfg, state.sweep, i, need_acc=pot.has_energy)
+             for i in range(cfg.n_colors)]
+    de, acc, prop = cuda_substep.substeps(cfg, pot, pos, occ, perm, draws)
     if (state.sweep + 1) % cfg.shift_every == 0:
         pos, occ, ovf = cuda_shift.shift(cfg, pos, occ, axis, d)
     else:
         ovf = torch.zeros((), dtype=torch.bool, device=pos.device)
     new_state = SimState(pos=pos, occ=occ, sweep=state.sweep + 1,
                          overflow=state.overflow | ovf)
-    return new_state, SweepMetrics(de, n_acc, n_prop, ovf)
+    return new_state, SweepMetrics(de.sum(), acc.sum(), prop.sum(), ovf)
 
 
 def run_sweeps(cfg: SimConfig, pot: Potential, state: SimState,

@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_sweep.py [--workload {hard-disk,lj3d,ka3d}]
                                            [--moves 64 8] [--sweeps 10]
+                                           [--tree DIR]
 
 For each n_moves: builds the workload's system, as ``mcjax_torch.bench``
 does (hard-disk: N = 1,048,576, phi 0.5, nmax 7, n_moves 64 and 8 by
@@ -13,8 +14,12 @@ up, then over ``--sweeps`` sweeps measures
   * wall ms per sweep (host clock around work that ends in a synchronize),
   * host ms per sweep to enqueue the work (host clock, no synchronize),
   * device busy ms per sweep and kernel time by name (torch.profiler),
+  * PyTorch calls per sweep (the operators the run loop calls, not the
+    ones they call in turn) and device kernels per sweep (torch.profiler),
 and prints one JSON line per n_moves with the device idle share
-1 - busy / wall. Needs a CUDA device.
+1 - busy / wall. ``--tree`` profiles another checkout's ``mcjax_torch``
+(by default the tree this script lies in), to compare with a parent
+commit in one chip call. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -29,14 +34,11 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-from mcjax_torch import bench  # noqa: E402
-from mcjax_torch.ops.random import TorchRandoms  # noqa: E402
-from mcjax_torch.ops.sweep import run_sweeps  # noqa: E402
-
 
 def measure(workload: str, n_moves: int, sweeps: int) -> dict:
+    from mcjax_torch import bench
+    from mcjax_torch.ops.random import TorchRandoms
+    from mcjax_torch.ops.sweep import run_sweeps
     if workload == "lj3d":
         cfg, pot, st = bench.build_lj3d(1_000_000, 24, n_moves,
                                         device="cuda")
@@ -60,11 +62,17 @@ def measure(workload: str, n_moves: int, sweeps: int) -> dict:
         st, m = run_sweeps(cfg, pot, st, sweeps, rnd)
         torch.cuda.synchronize()
     by_name: dict[str, float] = {}
+    kernels = 0
     for ev in prof.key_averages():            # kernels only, not their ops
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             name = ev.key[:60]
             by_name[name] = by_name.get(name, 0.0) + \
                 ev.self_device_time_total / 1e3
+            kernels += ev.count
+    # PyTorch calls of the run loop: operators no other operator called.
+    calls = sum(1 for ev in prof.events()
+                if ev.device_type == torch.autograd.DeviceType.CPU
+                and ev.name.startswith("aten::") and ev.cpu_parent is None)
     busy = sum(by_name.values())
     wall_ms = 1e3 * t_wall / sweeps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -75,6 +83,8 @@ def measure(workload: str, n_moves: int, sweeps: int) -> dict:
         "enqueue_ms_per_sweep": 1e3 * t_enqueue / sweeps,
         "device_busy_ms_per_sweep": (busy / sweeps) if busy else None,
         "device_idle_share": (1 - busy / sweeps / wall_ms) if busy else None,
+        "torch_calls_per_sweep": calls / sweeps,
+        "device_kernels_per_sweep": kernels / sweeps,
         "kernels_ms_per_sweep": {k: v / sweeps for k, v in top},
     }
 
@@ -86,9 +96,12 @@ def main() -> None:
     ap.add_argument("--moves", type=int, nargs="+", default=None,
                     help="64 8 (hard-disk) / 60 (lj3d, ka3d)")
     ap.add_argument("--sweeps", type=int, default=10)
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_sweep: needs a CUDA device")
+    sys.path.insert(0, os.path.abspath(args.tree))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -96,6 +109,7 @@ def main() -> None:
     for n_moves in moves:
         res = measure(args.workload, n_moves, args.sweeps)
         res["card"] = smi
+        res["tree"] = args.tree
         print(json.dumps(res))
 
 

@@ -1,16 +1,31 @@
 #!/usr/bin/env python3
-"""Build variant trees of the energetic sub-step kernels, for timing.
+"""Build variant trees of the sub-step and shift kernels, for timing.
 
     python3 scripts/substep_variants.py [NAME ...]
 
 Each ``scripts/substep_variants/NAME.diff`` is a patch against this tree's
-``mcjax_torch/csrc``: one design step of ``substep_lj.cu`` and
-``substep_mix.cu`` taken back, or one alternative tried and not kept. For
-each NAME (all by default) the script copies the tree to
-``build/variants/NAME`` (``build/`` is ignored by git) and applies the
-patch there with ``patch -p1``; ``scripts/time_substep_kernels.py`` run
-from inside each copy then times it, in turns with this tree, in one chip
-call. The patches:
+``mcjax_torch/csrc``: one design step of a kernel taken back, or (for the
+energetic kernels) one alternative tried and not kept. For each NAME (all
+by default) the script copies the tree to ``build/variants/NAME``
+(``build/`` is ignored by git) and applies the patch there with
+``patch -p1``;
+``scripts/time_substep_kernels.py --tree build/variants/NAME`` then times
+it, in turns with this tree, in one chip call. The patches of the 2D
+sub-step kernel (``substep.cu``) and the shift (``shift.cu``):
+
+* ``k1_nocull``: no culling of frozen slots (every live neighbor slot
+  staged, 56 a thread: 8 x nmax at nmax 7, so no cell takes the overflow
+  pass);
+* ``k1_percolor``: one launch a sub-step instead of one for the range;
+* ``k1_registers``: the frozen slots in registers, the parent's form (8 x
+  nmax of them, culled and empty ones parked far away, all tested every
+  move; launch bounds without a minimum of blocks);
+* ``shift_thread``: the shift's old thread-per-cell form (candidates read
+  from device memory one at a time, outputs written at the running count);
+* ``shift_fmodf``: the wrap into the box by ``fmodf`` alone, without the
+  subtraction that stands for it within two box lengths.
+
+Those of the energetic kernels (``substep_lj.cu``, ``substep_mix.cu``):
 
 * ``lj_persistent``: the LJ kernel on the mixture kernel's persistent grid
   (warps take cells from a counter);
@@ -25,8 +40,8 @@ call. The patches:
 * ``g16``: 16 lanes a cell, two cells a warp, 16 resident warps an SM
   (LJ kernel only);
 * ``nomoves`` and ``nocache``, for timing only (their results are wrong):
-  the kernels without their move loop, and without the frozen-cache build,
-  which splits a launch's time into staging, cache and moves.
+  the kernels without their move loop, and without the frozen-cache
+  build, which splits a launch's time into staging, cache and moves.
 """
 
 from __future__ import annotations

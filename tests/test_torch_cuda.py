@@ -68,6 +68,205 @@ def test_sweep_kernels_match_plain(cuda, n, nmax):
             assert bool(got[2]) == bool(want[2])
 
 
+def _disk_case(case, device):
+    """(cfg, pot, state, provider) of a one-launch sub-step case.
+
+    (n, nmax): n disks after two sweeps. ``sparse``: 120 disks in 1,600
+    cells, so most cells are empty and the rest hold one or two. ``full``:
+    every cell holds 16 disks of diameter 0.45 on a jittered 4 x 4 lattice
+    of spacing w / 4, so a cell keeps about 20 frozen slots, past the
+    kernel's 16 staged ones, and the overflow pass decides moves."""
+    if case == "sparse":
+        cfg = _cfg(4096, 7).replace(n_atoms=120)
+        g = torch.Generator().manual_seed(3)
+        x = (torch.rand(120, 2, generator=g) - 0.5) * cfg.box_length
+        return (cfg, mt.HardSphere(1.0), mt.init_state(cfg, device, x),
+                TorchRandoms(torch.Generator(device).manual_seed(5)))
+    if case == "full":
+        cfg = _cfg(4096, 16)
+        cps = cfg.cells_per_side
+        cfg = cfg.replace(n_atoms=16 * cps * cps)
+        g = torch.Generator().manual_seed(9)
+        cell = torch.stack(torch.meshgrid(torch.arange(cps),
+                                          torch.arange(cps), indexing="ij"),
+                           -1).reshape(-1, 1, 2)
+        grid = torch.stack(torch.meshgrid(torch.arange(4), torch.arange(4),
+                                          indexing="ij"), -1).reshape(1, 16, 2)
+        jitter = 0.04 * (torch.rand(cps * cps, 16, 2, generator=g) - 0.5)
+        x = ((cell + (grid + 0.5) / 4 + jitter) * cfg.cell_width
+             - cfg.box_length / 2).reshape(-1, 2)
+        return (cfg, mt.HardSphere(0.45), mt.init_state(cfg, device, x),
+                TorchRandoms(torch.Generator(device).manual_seed(11)))
+    n, nmax = case
+    cfg, pot = _cfg(n, nmax), mt.HardSphere(1.0)
+    rnd = TorchRandoms(torch.Generator(device).manual_seed(n + nmax))
+    st, _ = mt.run_sweeps(cfg, pot, mt.init_state(cfg, device), 2, rnd)
+    return cfg, pot, st, rnd
+
+
+@pytest.mark.parametrize("case,start", [((4096, 7), 0), ((4096, 7), 1),
+                                        ((1000, 5), 2), ((4096, 12), 0),
+                                        ("sparse", 0), ("full", 0)])
+def test_one_launch_substeps_match_plain(cuda, case, start):
+    """The 2D kernel's one launch of sub-steps [start, start + k), for
+    every k up to the end of the sweep, against k plain sub-steps, bit for
+    bit: pos, occ, and accepted and proposed moves of each sub-step. In the
+    ``full`` case the overflow pass runs (counted) and decides moves."""
+    cfg, pot, st, rnd = _disk_case(case, cuda)
+    perm, _, _ = rnd.schedule(cfg, st.sweep)
+    draws = [rnd.substep(cfg, st.sweep, i, False)
+             for i in range(start, cfg.n_colors)]
+    plain, occ = st.pos.clone(), st.occ.clone()
+    acc, prop = [], []
+    stats = cuda_substep.kernel_stats(cuda)
+    for k, (pick_u, disp, _) in enumerate(draws, start=1):
+        color = int(perm[start + k - 1])
+        own, _, a, p = cuda_substep.color_substep(cfg, pot, color, plain, occ,
+                                                  pick_u, disp)
+        plain[color] = own
+        acc.append(int(a))
+        prop.append(int(p))
+        pos = st.pos.clone()
+        stats.zero_()
+        before = cuda_substep.LIB.launches
+        de, k_acc, k_prop = cuda_substep.substeps(cfg, pot, pos, st.occ,
+                                                  perm, draws[:k], start)
+        torch.cuda.synchronize()
+        assert cuda_substep.LIB.launches == before + 1
+        assert torch.equal(pos.view(torch.int32), plain.view(torch.int32))
+        assert torch.equal(st.occ, occ)
+        assert k_acc.tolist() == acc and k_prop.tolist() == prop
+        assert de.tolist() == [0.0] * k
+    if case == "full":
+        assert int(stats[0]) > 0
+        assert 0 < sum(acc) < sum(prop)
+    else:
+        assert int(stats[0]) == 0
+
+
+def _f32_steps(x, ulps):
+    """Float32 ``x`` moved by ``ulps`` float32 steps (toward +inf when
+    positive); any shape."""
+    t = torch.as_tensor(x, dtype=torch.float32)
+    to = torch.full_like(t, math.copysign(math.inf, ulps))
+    for _ in range(abs(ulps)):
+        t = torch.nextafter(t, to)
+    return t
+
+
+def _disk_edge_state(ulps, device):
+    """A 2D state on the culling boundary. Each of 8 own cells of color 0
+    holds one disk on the face or corner of its cell that faces one of the
+    8 neighbor directions (on the cell's bound: its lower bound, or the
+    float32 below its upper bound); that neighbor holds one disk at the
+    diameter (1) from it along the direction, moved ``ulps`` float32 ulps
+    along the direction on each axis it faces. Returns (cfg, pot, state)."""
+    cfg = mt.SimConfig(dim=2, n_atoms=16, box_length=32.0, cells_per_side=16,
+                       nmax=4, n_moves=1, proposal="uniform", step_size=0.18,
+                       beta=1.0)
+    w, h = cfg.cell_width, cfg.box_length / 2
+    pos = torch.zeros((4, 2, cfg.nmax, *cfg.block_shape))
+    occ = torch.zeros((4, *cfg.block_shape), dtype=torch.int32)
+    for k, dvec in enumerate(cells.neighbor_offsets(2)):
+        blk = (2 * (k % 4), 2 * (k // 4))
+        lb = cuda_substep.cell_lower_bounds(cfg, 0, cfg.block_shape,
+                                            torch.device("cpu"))[:, blk[0],
+                                                                 blk[1]]
+        hi = lb + torch.tensor(w, dtype=torch.float32)
+        x = torch.stack([lb[a] if dvec[a] < 0 else
+                         _f32_steps(hi[a], -1) if dvec[a] > 0 else
+                         lb[a] + w / 2 for a in range(2)])
+        norm = math.sqrt(sum(v * v for v in dvec))
+        y = x + torch.tensor([v / norm for v in dvec])
+        y = torch.stack([_f32_steps(y[a], ulps * dvec[a]) if dvec[a] else y[a]
+                         for a in range(2)])
+        occ[(0, *blk)] = 1
+        pos[(0, slice(None), 0, *blk)] = x
+        ncell = [2 * b + v for b, v in zip(blk, dvec)]
+        color = sum((c % 2) << a for a, c in enumerate(ncell))
+        nblk = tuple((c // 2) % cfg.half_cps for c in ncell)
+        y = y + torch.tensor([cfg.box_length if c < 0 else 0.0
+                              for c in ncell])
+        occ[(color, *nblk)] = 1
+        pos[(color, slice(None), 0, *nblk)] = y
+    st = mt.SimState(pos=pos.to(device), occ=occ.to(device), sweep=0,
+                     overflow=torch.zeros((), dtype=torch.bool, device=device))
+    return cfg, mt.HardSphere(1.0), st
+
+
+@pytest.mark.parametrize("ulps", [-4, -3, -2, -1, 1, 2, 3, 4])
+def test_disk_kernel_at_the_cull_edge(cuda, ulps):
+    """Frozen disks 1-4 float32 ulps inside and outside the diameter of an
+    own disk on each face and corner of its cell (on the cell's bound),
+    which proposes to stay where it is: the kernel, whose culling must
+    keep every frozen disk that overlaps, equals the plain version bit for
+    bit, and the plain version rejects where the frozen disk is inside."""
+    cfg, pot, st = _disk_edge_state(ulps, cuda)
+    bs = cfg.block_shape
+    perm = torch.arange(4, dtype=torch.int32, device=cuda)
+    pick_u = torch.zeros((1, *bs), device=cuda)
+    disp = torch.zeros((1, 2, *bs), device=cuda)
+    own, _, acc, prop = cuda_substep.color_substep(cfg, pot, 0, st.pos,
+                                                   st.occ, pick_u, disp)
+    _, k_acc, k_prop = cuda_substep.substep(cfg, pot, st.pos, st.occ, perm,
+                                            0, pick_u, disp)
+    torch.cuda.synchronize()
+    assert torch.equal(st.pos[0].view(torch.int32), own.view(torch.int32))
+    assert (int(k_acc), int(k_prop)) == (int(acc), int(prop))
+    assert int(prop) == 8
+    if abs(ulps) >= 2:
+        assert int(acc) == (8 if ulps > 0 else 0)
+
+
+def _full_cells(cfg, st, seed):
+    """``st`` with every cell holding nmax slots at uniform points of the
+    cell (coordinate planes; attribute planes kept)."""
+    pos = st.pos.clone()
+    lb = torch.stack([cuda_substep.cell_lower_bounds(
+        cfg, c, cfg.block_shape, pos.device) for c in range(cfg.n_colors)])
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand(pos[:, :cfg.dim].shape, generator=g).to(pos.device)
+    pos[:, :cfg.dim] = lb[:, :, None] + u * cfg.cell_width
+    return mt.SimState(pos=pos, occ=torch.full_like(st.occ, cfg.nmax),
+                       sweep=st.sweep, overflow=st.overflow)
+
+
+@pytest.mark.parametrize("form", ["disks", "lj3d", "ka3d"])
+def test_shift_kernel_half_width_and_full_cells(cuda, form):
+    """The shift kernel against ``shift_rebin``, bit for bit, in 2D, 3D and
+    4-plane form (cells a color not a multiple of the kernel's tile: 400
+    and 27), on every axis with d = -w/2, the largest float32 below w/2
+    and w/2, first on a state after a sweep, then with every cell full,
+    where the overflow flag must be raised."""
+    if form == "disks":
+        cfg, pot = _cfg(4096, 7), mt.HardSphere(1.0)
+        st = mt.init_state(cfg, cuda)
+    else:
+        build = bench.build_lj3d if form == "lj3d" else bench.build_ka3d
+        cfg, pot, st = build(*((4000, 24) if form == "lj3d" else (4500, 34)),
+                             16, device=cuda)
+    assert cfg.cells_per_color % 32 != 0
+    st, _ = mt.run_sweeps(cfg, pot, st, 1,
+                          TorchRandoms(torch.Generator(cuda).manual_seed(6)))
+    hw = torch.tensor(cfg.cell_width / 2, dtype=torch.float32)
+    ds = [-hw, _f32_steps(hw, -1), hw]
+    raised = 0
+    for state in (st, _full_cells(cfg, st, 7)):
+        for ax in range(cfg.dim):
+            for d in ds:
+                a = torch.tensor(ax, dtype=torch.int32, device=cuda)
+                dd = d.to(cuda)
+                want = cuda_shift.shift_rebin(cfg, state.pos, state.occ, a, dd)
+                got = cuda_shift.shift(cfg, state.pos, state.occ, a, dd)
+                torch.cuda.synchronize()
+                assert torch.equal(got[0].view(torch.int32),
+                                   want[0].view(torch.int32))
+                assert torch.equal(got[1], want[1])
+                assert bool(got[2]) == bool(want[2])
+                raised += bool(got[2])
+    assert raised > 0
+
+
 @pytest.mark.parametrize("axis,past", [(0, 0), (1, 1)])
 def test_shift_kernel_seam_guard(cuda, axis, past):
     """The kernel's seam guard equals the plain version's (see

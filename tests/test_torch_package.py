@@ -124,6 +124,27 @@ def test_substep_raises_where_no_kernel_runs():
         cuda_substep.substep(CFG, lj, st.pos, st.occ, perm, 0, pick_u, disp)
 
 
+def test_substeps_range_equals_substep_calls():
+    """``substeps`` over a range that starts mid-sweep equals ``substep``
+    called once per sub-step (the plain path), and refuses a range that
+    leaves the sweep."""
+    st = mt.init_state(CFG, device="cpu")
+    rnd = TorchRandoms(torch.Generator().manual_seed(4))
+    perm, _, _ = rnd.schedule(CFG, 0)
+    draws = [rnd.substep(CFG, 0, i, False) for i in range(CFG.n_colors)]
+    one = st.pos.clone()
+    want = [cuda_substep.substep(CFG, POT, one, st.occ, perm, i, *draws[i])
+            for i in range(1, CFG.n_colors)]
+    de, acc, prop = cuda_substep.substeps(CFG, POT, st.pos, st.occ, perm,
+                                          draws[1:], start=1)
+    assert torch.equal(st.pos, one)
+    assert acc.tolist() == [int(w[1]) for w in want]
+    assert prop.tolist() == [int(w[2]) for w in want]
+    assert de.shape == (3,) and not bool(de.any())
+    with pytest.raises(ValueError, match="outside"):
+        cuda_substep.substeps(CFG, POT, st.pos, st.occ, perm, draws, start=1)
+
+
 def test_torch_randoms_shapes_and_seed():
     def draw(seed):
         r = TorchRandoms(torch.Generator().manual_seed(seed))
