@@ -37,6 +37,22 @@ and checks three paths, each through the user's entry point
   then the main path (100 + 100 sweeps) with launch counts, overflow, N,
   the A and B populations (800,000 / 200,000), ``validate_state`` and the
   energy anchor; the same shape and health lines as lj3d.
+* the NPT ensemble (``mcjax_torch.ops.npt``): the NPT (scale^2) form of
+  each sub-step kernel against its plain version at s = 1, 0.999 and
+  1.001 on the 1M states above (2D bit for bit; lj3d and ka3d under the
+  near-tie rule), and at s = 1 against the NVT kernel bit for bit; a 2D
+  NPT small run through the kernels against the plain CPU path fed the
+  same random numbers; the hard-disk equation of state (256 disks at
+  phi* 0.4 under the Henderson pressure, 500 + 1,500 sweeps: the mean
+  area fraction within 6 %); then the main path, lj3d at N = 1,000,000
+  through ``mcjax_torch.bench.run_bench_npt`` (30 + 30 sweeps), and ka3d
+  at a smaller depth (10 + 10), gated on the volume acceptance in (0, 1),
+  launch counts (8 NPT sub-step launches and 1 shift a sweep), overflow,
+  N, ``validate_state`` at the final scale and the carried energy against
+  the float64 cell total at the final scale (ANCHOR_REL). It prints the
+  NPT sweep's time beside the NVT sweep's, the volume move's time and
+  peak memory, and the float32 against the float64 energy change of the
+  warm-up run's volume moves.
 
 Any failure raises and the script exits non-zero. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no
@@ -47,7 +63,9 @@ and the card's name and power limit; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -71,6 +89,19 @@ OPS_PER_LJ_TERM = 20
 # inv6 2, bracket fma 2, shift subtract 1, energy multiply 1, cutoff
 # multiply, compare and select 3, accumulate 1.
 OPS_PER_MIX_TERM = 23
+
+# The NPT phases. Pressures: mcjax's virial pressure of each fluid at a
+# small N (tools/npt_pressure.py: lj3d at N = 4,000 at its defaults, ka3d
+# at N = 4,100 with --equil 1500 --block-sweeps 50);
+# the ln V half-widths are set for a volume acceptance of about 0.2-0.6 at
+# N = 1,000,000.
+NPT_SCALES = (1.0, 0.999, 1.001)   # the scale^2 kernels' check points
+NPT_TIME_SCALE = 0.999             # and the one they are timed at
+NPT = {"lj3d": dict(pressure=10.645, dlnv_max=6e-4, sweeps=30),
+       "ka3d": dict(pressure=7.668, dlnv_max=3e-4, sweeps=10)}
+NPT_SMALL = dict(n=4096, sweeps=10, dlnv_max=2e-4)
+HENDERSON = dict(n=256, phi=0.4, equil=500, sweeps=1500, dlnv_max=0.02,
+                 rel=0.06)
 
 MAIN_SWEEPS = 20      # 2D main path: warm-up and timed run, each
 LJ_SWEEPS = 30        # lj3d main path: warm-up and timed run, each
@@ -133,6 +164,11 @@ class Recorder:
         self.log.append(out)
         return out
 
+    def volume(self, cfg, sweep, dlnv_max):
+        out = self.inner.volume(cfg, sweep, dlnv_max)
+        self.log.append(out)
+        return out
+
 
 class Replay:
     """Provider that hands back a Recorder's tensors, on the CPU."""
@@ -145,6 +181,9 @@ class Replay:
         return self.log.pop(0)
 
     def substep(self, cfg, sweep, i, need_acc):
+        return self.log.pop(0)
+
+    def volume(self, cfg, sweep, dlnv_max):
         return self.log.pop(0)
 
 
@@ -402,12 +441,14 @@ def check_energetic_small_run_against_cpu(mt, cuda_substep, cuda_shift,
           f"{int(occ.sum())} particles")
 
 
-def substep_bound_ms(cfg, st, inputs, cells) -> tuple[float, str]:
+def substep_bound_ms(cfg, st, inputs, cells, ops_per_test=OPS_PER_PAIR_TEST
+                     ) -> tuple[float, str]:
     """2D: least time for one launch of the sweep's sub-steps on this run's
     data: live slots read once and the active colors' live slots written
     once, occupancies and every sub-step's random inputs read once, the
     counts written; pair tests the occupancies need, every live slot of
-    the own and neighbor cells for each move."""
+    the own and neighbor cells for each move (``ops_per_test`` each; the
+    NPT form's s^2 multiply adds one)."""
     _, perm, draws = inputs
     colors = [int(c) for c in perm[:len(draws)]]
     occ = st.occ
@@ -421,7 +462,7 @@ def substep_bound_ms(cfg, st, inputs, cells) -> tuple[float, str]:
         _, nbr_occ = cells.neighbor_stack(cfg, st.pos, occ, color)
         own = occ[color].long()
         tests = torch.where(own > 0, (own - 1) + nbr_occ.long().sum(0), 0)
-        ops += OPS_PER_PAIR_TEST * cfg.n_moves * int(tests.sum())
+        ops += ops_per_test * cfg.n_moves * int(tests.sum())
     return bound(nbytes, ops)
 
 
@@ -472,19 +513,28 @@ def bound(nbytes: int, ops: int) -> tuple[float, str]:
 def reset(libs) -> None:
     for lib in libs.values():
         lib.launches = 0
+        lib.npt_launches = 0
 
 
 def expect_launches(libs, launches, substep_lib, per_sweep,
-                    total_sweeps) -> None:
+                    total_sweeps, npt: bool = False) -> None:
     """The run launched its sub-step kernel ``per_sweep`` times a sweep
-    (once for 2D disks, once per color for the energetic models), the
-    shift once per sweep, and no other kernel."""
+    (once for 2D disks, once per color for the energetic models), each
+    launch its NPT form if ``npt`` and its NVT form if not, the shift once
+    per sweep, and no other kernel."""
     want = {name: 0 for name in libs}
     want[substep_lib] = per_sweep * total_sweeps
     want["shift"] = total_sweeps
     if launches != want:
         raise AssertionError(f"launch counts {launches} for {total_sweeps} "
                              f"sweeps, want {want}")
+    npt_launches = {name: lib.npt_launches for name, lib in libs.items()}
+    want_npt = {name: 0 for name in libs}
+    if npt:
+        want_npt[substep_lib] = want[substep_lib]
+    if npt_launches != want_npt:
+        raise AssertionError(f"NPT-form launches {npt_launches}, want "
+                             f"{want_npt}")
 
 
 def run_main_path(mt, bench, libs, n_moves: int, stats: torch.Tensor) -> dict:
@@ -570,10 +620,12 @@ def time_energetic(mt, cuda_substep, cuda_shift, cells, workload, cfg, pot,
                    st, inputs) -> tuple[dict, dict, float]:
     """An energetic workload's kernel and plain-version times at the
     main-path shapes (kernels alone, launches not counted), their bounds
-    on this run's data, and the time of one sub-step's random draws.
-    Prints the sub-step kernel's launch shape and, for one sub-step on the
-    timing input, the full pair terms it evaluated beside the count the
-    bound takes, and the cells that took its overflow pass."""
+    on this run's data, and the time of one sub-step's random draws; the
+    sub-step kernel's NPT form is timed on the same input at scale
+    NPT_TIME_SCALE. Prints the sub-step kernel's launch shape (both forms)
+    and, for one sub-step on the timing input, the full pair terms it
+    evaluated beside the count the bound takes, and the cells that took
+    its overflow pass."""
     w = ENERGETIC[workload]
     sub, sh = w["substep"], w["shift"]
     before, perm, i, draws, _ = inputs["substep"]
@@ -581,23 +633,29 @@ def time_energetic(mt, cuda_substep, cuda_shift, cells, workload, cfg, pot,
     de_map = torch.empty(cfg.block_shape, dtype=torch.float32, device="cuda")
     acc_map = torch.empty(cfg.block_shape, dtype=torch.int32, device="cuda")
     launch = getattr(cuda_substep, w["launch"])
-    shape = cuda_substep.kernel_shape(
-        cuda_substep.kernel_library(cfg, pot), cfg.nmax)
+    scale = npt_scale(NPT_TIME_SCALE)
+    s2 = cuda_substep.scale_squared(scale, torch.float32, "cuda")
     stats = cuda_substep.kernel_stats("cuda")
-    stats.zero_()
-    launch(cfg, pot, work, st.occ, perm, i, *draws, de_map, acc_map)
-    torch.cuda.synchronize()
-    overflow_cells, full_terms = stats.tolist()
     need = bound_terms(cfg, st, inputs["substep"], cells)
-    print(f"{sub} shape at nmax {cfg.nmax}: {shape['registers']} registers, "
-          f"{shape['local_bytes']} bytes local, shared memory "
-          f"{shape['static_smem']} static + {shape['dynamic_smem']} dynamic "
-          f"bytes a block, {shape['warps_per_sm']} resident warps an SM, "
-          f"{shape['staged_capacity']} staged slots a warp")
-    print(f"{sub} one sub-step: {full_terms} full pair terms evaluated, "
-          f"the bound counts {need} ({full_terms / need:.4f} of them); "
-          f"{overflow_cells} of {cfg.cells_per_color} cells took the "
-          "overflow pass")
+    for name, form_s2 in ((sub, None), (sub + "_npt", s2)):
+        shape = cuda_substep.kernel_shape(
+            cuda_substep.kernel_library(cfg, pot), cfg.nmax,
+            scaled=form_s2 is not None)
+        work.copy_(before)
+        stats.zero_()
+        launch(cfg, pot, work, st.occ, perm, i, *draws, de_map, acc_map,
+               form_s2)
+        torch.cuda.synchronize()
+        overflow_cells, full_terms = stats.tolist()
+        print(f"{name} shape at nmax {cfg.nmax}: {shape['registers']} "
+              f"registers, {shape['local_bytes']} bytes local, shared memory "
+              f"{shape['static_smem']} static + {shape['dynamic_smem']} "
+              f"dynamic bytes a block, {shape['warps_per_sm']} resident warps"
+              f" an SM, {shape['staged_capacity']} staged slots a warp")
+        print(f"{name} one sub-step: {full_terms} full pair terms evaluated, "
+              f"the bound counts {need} ({full_terms / need:.4f} of them); "
+              f"{overflow_cells} of {cfg.cells_per_color} cells took the "
+              "overflow pass")
     work.copy_(before)
     plain = plain_substep(cuda_substep, pot)
     color = int(perm[i])
@@ -607,6 +665,12 @@ def time_energetic(mt, cuda_substep, cuda_shift, cells, workload, cfg, pot,
         sub + "_plain": cuda_ms(lambda: plain(cfg, pot, color, before,
                                               st.occ, *draws), PLAIN_RUNS),
     }
+    work.copy_(before)
+    times[sub + "_npt"] = cuda_ms(lambda: launch(
+        cfg, pot, work, st.occ, perm, i, *draws, de_map, acc_map, s2),
+        TIMED_LAUNCHES)
+    times[sub + "_npt_plain"] = cuda_ms(lambda: plain(
+        cfg, pot, color, before, st.occ, *draws, scale=scale), PLAIN_RUNS)
     s_pos, s_occ, s_axis, s_d = inputs["shift"]
     outs = (torch.empty_like(s_pos), torch.empty_like(s_occ),
             torch.zeros((), dtype=torch.int32, device="cuda"))
@@ -619,8 +683,298 @@ def time_energetic(mt, cuda_substep, cuda_shift, cells, workload, cfg, pot,
     ops = OPS_PER_MIX_TERM if workload == "ka3d" else OPS_PER_LJ_TERM
     bounds = {sub: energetic_substep_bound_ms(cfg, st, inputs["substep"],
                                               cells, ops),
+              sub + "_npt": energetic_substep_bound_ms(
+                  cfg, st, inputs["substep"], cells, ops + 1),
               sh: shift_bound_ms(cfg, st)}
     return times, bounds, rng_ms
+
+
+def npt_scale(s: float) -> torch.Tensor:
+    return torch.tensor(s, dtype=torch.float32, device="cuda")
+
+
+def check_npt_disk_kernel(mt, cuda_substep, cfg, pot, st) -> float:
+    """2D NPT form at 1M: one launch of a sweep's four sub-steps at each
+    scale of NPT_SCALES against four plain sub-steps at that scale, bit
+    for bit (positions and counts), and at s = 1 against the NVT kernel.
+    Returns the largest absolute difference."""
+    rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(21))
+    err = 0.0
+    for s in NPT_SCALES:
+        scale = npt_scale(s)
+        perm, _, _ = rnd.schedule(cfg, st.sweep)
+        draws = [rnd.substep(cfg, st.sweep, i, False)
+                 for i in range(cfg.n_colors)]
+        before = st.pos.clone()
+        want = st.pos.clone()
+        plain_counts = []
+        for i, (pick_u, disp, _) in enumerate(draws):
+            color = int(perm[i])
+            own, _, acc, prop = cuda_substep.color_substep(
+                cfg, pot, color, want, st.occ, pick_u, disp, scale=scale)
+            want[color] = own
+            plain_counts.append((int(acc), int(prop)))
+        nvt = before.clone()
+        if s == 1.0:
+            cuda_substep.substeps(cfg, pot, nvt, st.occ, perm, draws)
+        _, k_acc, k_prop = cuda_substep.substeps(cfg, pot, st.pos, st.occ,
+                                                 perm, draws, scale=scale)
+        torch.cuda.synchronize()
+        err = max(err, abs_err(st.pos, want))
+        k_counts = list(zip(k_acc.tolist(), k_prop.tolist()))
+        if not bitwise_equal(st.pos, want) or k_counts != plain_counts:
+            raise AssertionError(f"NPT substep kernel at s {s} != plain")
+        if s == 1.0 and not bitwise_equal(st.pos, nvt):
+            raise AssertionError("NPT substep kernel at s 1 != NVT kernel")
+        nvt_note = " and to the NVT kernel" if s == 1.0 else ""
+        print(f"substep NPT form at s {s}, one launch of 4 sub-steps: "
+              f"bitwise equal to 4 plain sub-steps{nvt_note}; accepted / "
+              f"proposed {k_counts}")
+    return err
+
+
+def check_npt_energetic(mt, cuda_substep, workload, cfg, pot, st) -> float:
+    """An energetic NPT form at 1M: all 8 colors at each scale of
+    NPT_SCALES against the plain version at that scale, under the near-tie
+    rule, and at s = 1 against the NVT kernel bit for bit (positions and
+    both per-cell maps). Returns the largest per-cell dE difference."""
+    w = ENERGETIC[workload]
+    launch = getattr(cuda_substep, w["launch"])
+    plain = plain_substep(cuda_substep, pot)
+    rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(w["seed"] + 20))
+    worst = 0.0
+    bs = cfg.block_shape
+    for s in NPT_SCALES:
+        scale = npt_scale(s)
+        s2 = cuda_substep.scale_squared(scale, torch.float32, "cuda")
+        perm, _, _ = rnd.schedule(cfg, st.sweep)
+        n_diff = n_ties = 0
+        for i in range(cfg.n_colors):
+            draws = rnd.substep(cfg, st.sweep, i, True)
+            color = int(perm[i])
+            before = st.pos.clone()
+            rec = {}
+            own, de, acc, prop = plain(cfg, pot, color, before, st.occ,
+                                       *draws, rec, scale=scale)
+            maps = [torch.empty(bs, dtype=t, device="cuda")
+                    for t in (torch.float32, torch.int32) * 2]
+            if s == 1.0:
+                nvt = before.clone()
+                launch(cfg, pot, nvt, st.occ, perm, i, *draws, *maps[2:])
+            launch(cfg, pot, st.pos, st.occ, perm, i, *draws, *maps[:2], s2)
+            torch.cuda.synchronize()
+            de_map, acc_map = maps[:2]
+            differs = (st.pos[color].view(torch.int32)
+                       != own.view(torch.int32)).any(0).any(0)
+            ties = rec["margin"] <= NEAR_TIE
+            if bool((differs & ~ties).any()):
+                raise AssertionError(f"{workload} NPT substep at s {s} != "
+                                     f"plain outside near ties, color {color}")
+            k_de, k_acc = float(de_map.double().sum()), int(acc_map.sum())
+            if not bool(differs.any()) and (
+                    k_acc != int(acc)
+                    or abs(k_de - float(de)) > DE_REL * abs(float(de)) + DE_ABS):
+                raise AssertionError(f"{workload} NPT substep at s {s}, color "
+                                     f"{color}: accepted {k_acc} vs "
+                                     f"{int(acc)}, dE {k_de} vs {float(de)}")
+            if s == 1.0 and not (bitwise_equal(st.pos, nvt)
+                                 and bitwise_equal(de_map, maps[2])
+                                 and torch.equal(acc_map, maps[3])):
+                raise AssertionError(f"{workload} NPT substep at s 1 != NVT "
+                                     f"kernel, color {color}")
+            worst = max(worst, float(
+                (de_map - rec["de_cell"]).abs()[~differs].max()))
+            n_diff += int(differs.sum())
+            n_ties += int(ties.sum())
+        print(f"{workload} substep NPT form at s {s}, 8 colors at N = "
+              f"1,000,000: {n_diff} differing cells, all near ties; near-tie "
+              f"cells {n_ties}"
+              f"{'; bitwise equal to the NVT kernel' if s == 1.0 else ''}")
+    print(f"{workload} substep NPT form: largest dE difference per cell "
+          f"{worst:.3e}")
+    return worst
+
+
+def check_npt_small_run_against_cpu(mt) -> None:
+    """2D NPT: a small run through the kernels equals the plain CPU path
+    fed the same random numbers (volume draws included): positions,
+    occupancies, log_scale and the volume decisions bit for bit. The box
+    scale exp(log_scale) is computed by each device's own expf; its gap is
+    printed in float32 ulps."""
+    from mcjax_torch import bench
+    n, sweeps, dlnv = NPT_SMALL["n"], NPT_SMALL["sweeps"], NPT_SMALL["dlnv_max"]
+    phi = 0.5
+    pressure = henderson_pressure(phi)
+    cfg, pot, st = bench.build(n, phi, 2.0, 7, 16, device="cuda")
+    rec = Recorder(mt.TorchRandoms(torch.Generator("cuda").manual_seed(22)))
+    g_st, g_m = mt.run_npt(cfg, pot, mt.init_npt(st), pressure, sweeps, rec,
+                           dlnv)
+    c_st, c_m = mt.run_npt(cfg, pot, mt.init_npt(mt.init_state(cfg, "cpu")),
+                           pressure, sweeps, Replay(rec.log), dlnv)
+    for name, a, b in (("pos", g_st.sim.pos, c_st.sim.pos),
+                       ("occ", g_st.sim.occ, c_st.sim.occ),
+                       ("log_scale", g_st.log_scale, c_st.log_scale),
+                       ("vol_accepted", g_m.vol_accepted, c_m.vol_accepted),
+                       ("accepted", g_m.sweep.accepted, c_m.sweep.accepted),
+                       ("proposed", g_m.sweep.proposed, c_m.sweep.proposed)):
+        if not bitwise_equal(a.cpu(), b):
+            raise AssertionError(f"NPT small run: GPU {name} != CPU {name}")
+    ulps = abs(int(g_st.scale.cpu().view(torch.int32))
+               - int(c_st.scale.view(torch.int32)))
+    print(f"NPT small run (N={n}, {sweeps} sweeps, P {pressure:.4f}, dlnv_max "
+          f"{dlnv}): GPU kernels == CPU plain path (pos, occ, log_scale, "
+          f"volume decisions); {int(g_m.vol_accepted.sum())} volume moves "
+          f"taken; exp(log_scale) GPU vs CPU: {ulps} ulps apart")
+    # the card's expf and logf against the CPU's on the arguments NPT meets
+    g = torch.Generator().manual_seed(24)
+    for name, fn, x in (
+            ("exp", torch.exp, (torch.rand(1 << 20, generator=g) - 0.5) * 0.1),
+            ("log", torch.log, torch.rand(1 << 20, generator=g)
+             .clamp_(min=1e-38))):
+        gpu = fn(x.to("cuda")).cpu().view(torch.int32).long()
+        cpu = fn(x).view(torch.int32).long()
+        gap = (gpu - cpu).abs()
+        print(f"float32 {name} on the card against the CPU over 2^20 "
+              f"arguments: {int((gap > 0).sum())} differ, at most "
+              f"{int(gap.max())} ulps")
+
+
+def henderson_pressure(phi: float) -> float:
+    """beta P of hard disks at area fraction phi, Henderson's equation of
+    state, at beta 1."""
+    return 4 * phi / math.pi * (1 + phi ** 2 / 8) / (1 - phi) ** 2
+
+
+def check_henderson(mt, libs) -> dict:
+    """tests/test_npt.py's hard-disk equation-of-state check on the card:
+    256 disks under the Henderson pressure of phi* 0.4 settle at a mean
+    area fraction within 6 % of 0.4. Every sweep launches the 2D kernel's
+    NPT form once and the shift once (counted)."""
+    n, phi = HENDERSON["n"], HENDERSON["phi"]
+    box = math.sqrt(n * math.pi / 4 / phi)
+    cps = int(box // 2.0) - int(box // 2.0) % 2
+    cfg = mt.SimConfig(dim=2, n_atoms=n, box_length=box, cells_per_side=cps,
+                       nmax=10, n_moves=4, proposal="uniform", step_size=0.15,
+                       beta=1.0)
+    pot = mt.HardSphere(1.0)
+    pressure = henderson_pressure(phi)
+    rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(23))
+    reset(libs)
+    nst, _ = mt.run_npt(cfg, pot, mt.init_npt(mt.init_state(cfg, "cuda")),
+                        pressure,
+                        HENDERSON["equil"], rnd, HENDERSON["dlnv_max"])
+    nst, m = mt.run_npt(cfg, pot, nst, pressure, HENDERSON["sweeps"], rnd,
+                        HENDERSON["dlnv_max"])
+    torch.cuda.synchronize()
+    total = HENDERSON["equil"] + HENDERSON["sweeps"]
+    launches = {name: lib.launches for name, lib in libs.items()}
+    expect_launches(libs, launches, "substep", 1, total, npt=True)
+    phi_mean = n * math.pi / 4 / float(m.volume.double().mean())
+    mt.validate_state(cfg, nst.sim, pot, scale=float(nst.scale))
+    if abs(phi_mean - phi) / phi >= HENDERSON["rel"]:
+        raise AssertionError(f"Henderson: mean phi {phi_mean}, want {phi}")
+    acc = float(m.vol_accepted.float().mean())
+    print(f"hard-disk NPT equation of state (N={n}, beta P {pressure:.6f}): "
+          f"mean phi {phi_mean:.6f} against {phi} (rel "
+          f"{abs(phi_mean - phi) / phi:.4f}, limit {HENDERSON['rel']}); "
+          f"volume acceptance {acc:.4f}; launches {launches}")
+    return {"launches": launches["substep"], "phi_mean": phi_mean}
+
+
+class VolumeAudit:
+    """A volume hook: for each volume move, the float32 energy change the
+    decision used (the total at s_new less the carried total) beside the
+    float64 one (both totals in float64 on the same positions), split into
+    the carried energy's gap from a fresh float32 total at s and the
+    float32 totals' own dU gap; and the moves the one-ring contract
+    refuses (s_new w < r_cut). The run's cfg and pot come with each call."""
+
+    def __init__(self, mt):
+        self.mt, self.cfg, self.pot = mt, None, None
+        self.du32, self.du64, self.carry, self.s_new = [], [], [], []
+
+    def __call__(self, cfg, pot, pos, occ, s, s_new, u_cur, u_new):
+        self.cfg, self.pot = cfg, pot
+        total = self.mt.total_energy_cells
+        f64 = torch.float64
+        u32 = total(cfg, pot, pos, occ, scale=s)
+        self.du32.append(torch.stack([u_new - u_cur, u_new - u32]))
+        self.carry.append(u_cur.double() - u32.double())
+        self.du64.append(total(cfg, pot, pos, occ, f64, s_new)
+                         - total(cfg, pot, pos, occ, f64, s))
+        self.s_new.append(s_new)
+
+    def summary(self) -> dict:
+        du32 = torch.stack(self.du32).double().cpu()
+        du64 = torch.stack(self.du64).cpu()
+        gap = (du32[:, 0] - du64).abs()
+        fresh = (du32[:, 1] - du64).abs()
+        carry = torch.stack(self.carry).cpu().abs()
+        s_new = torch.stack(self.s_new).cpu()
+        return {"volume_moves_audited": len(self.du32),
+                "du_f32_minus_f64_max": float(gap.max()),
+                "du_f32_minus_f64_mean": float(gap.mean()),
+                "du_fresh_f32_minus_f64_max": float(fresh.max()),
+                "carried_minus_fresh_f32_max": float(carry.max()),
+                "du_f64_abs_mean": float(du64.abs().mean()),
+                "beta_du_gap_max": self.cfg.beta * float(gap.max()),
+                "one_ring_refusals": int((s_new * self.cfg.cell_width
+                                          < self.pot.r_cut).sum())}
+
+
+def run_npt_main_path(mt, bench, libs, workload: str, stats: torch.Tensor,
+                      nvt: dict) -> dict:
+    """An NPT main path through the user's entry point
+    (``bench.run_bench_npt``): launch counts over exactly this run (every
+    sub-step launch the NPT form), the invariants at the final scale, the
+    volume acceptance, the carried energy against the float64 total, the
+    float32 against the float64 volume-move energy changes of the warm-up,
+    and the volume move's time and peak memory on the final state."""
+    w, npt = ENERGETIC[workload], NPT[workload]
+    audit = VolumeAudit(mt)
+    reset(libs)
+    stats.zero_()
+    result, cfg, pot, nst, warm, m = bench.run_bench_npt(
+        workload, npt["pressure"], npt["dlnv_max"], sweeps=npt["sweeps"],
+        volume_hook=audit)
+    torch.cuda.synchronize()
+    launches = {name: lib.launches for name, lib in libs.items()}
+    total_sweeps = 2 * npt["sweeps"]
+    expect_launches(libs, launches, w["lib"], cfg.n_colors, total_sweeps,
+                    npt=True)
+    check_result(mt, cfg, pot, nst.sim, result)
+    result.update(mt.validate_state(cfg, nst.sim, pot,
+                                    expect_species=w["species"],
+                                    scale=float(nst.scale)))
+    if w["species"] is not None and \
+            [result["n_a"], result["n_b"]] != w["species"]:
+        raise AssertionError(f"{workload} NPT: A, B = {result['n_a']}, "
+                             f"{result['n_b']}, want {w['species']}")
+    if not 0.0 < result["volume_acceptance"] < 1.0:
+        raise AssertionError(f"{workload} NPT: volume acceptance "
+                             f"{result['volume_acceptance']}")
+    if result["carried_energy_rel_err"] > ANCHOR_REL:
+        raise AssertionError(f"{workload} NPT: carried energy "
+                             f"{result['carried_energy']} against "
+                             f"{result['energy_f64']}")
+    result.update(audit.summary())
+    # the volume move's cell total alone, on the final state
+    s_new = nst.scale * math.exp(npt["dlnv_max"] / cfg.dim)
+    total = mt.total_energy_cells
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    vol_ms = cuda_ms(lambda: total(cfg, pot, nst.sim.pos, nst.sim.occ,
+                                   scale=s_new), 3)
+    peak = torch.cuda.max_memory_allocated() - base
+    n_sub = launches[w["lib"]]
+    result.update(launches=launches, overflow_cells=int(stats[0]),
+                  cell_launches=n_sub * cfg.cells_per_color,
+                  volume_move_ms=vol_ms, volume_move_peak_bytes=peak,
+                  nvt_ms_per_sweep=nvt["ms_per_sweep"],
+                  volume_move_share=vol_ms / result["ms_per_sweep"])
+    print(json.dumps(result))
+    return result
 
 
 def main() -> int:
@@ -648,7 +1002,7 @@ def main() -> int:
         entry = name
         for line in lib.build_log.splitlines():     # nvcc -Xptxas -v
             if "Compiling entry function" in line:
-                targs = re.search(r"I((?:Li\d+E)+)E", line)
+                targs = re.search(r"I((?:L[ib]\d+E)+)E", line)
                 params = re.findall(r"\d+", targs[1]) if targs else []
                 entry = f"{name}<{','.join(params)}>" if params else name
             elif "registers" in line or "spill" in line:
@@ -658,6 +1012,10 @@ def main() -> int:
     cfg, pot, st, err, inputs = check_kernels_against_plain(mt, cuda_substep,
                                                             cuda_shift)
     check_small_run_against_cpu(mt)
+    # the 2D NPT form on the state the NVT checks left, and an NPT small run
+    err["substep_npt"] = check_npt_disk_kernel(
+        mt, cuda_substep, cfg, pot, dataclasses.replace(st, pos=st.pos.clone()))
+    check_npt_small_run_against_cpu(mt)
     # 3D Lennard-Jones and the Kob-Andersen mixture
     energetic = {}
     for workload in ENERGETIC:
@@ -666,6 +1024,9 @@ def main() -> int:
         err.update(eerr)
         check_energetic_small_run_against_cpu(mt, cuda_substep, cuda_shift,
                                               workload)
+        err[ENERGETIC[workload]["substep"] + "_npt"] = check_npt_energetic(
+            mt, cuda_substep, workload, ecfg, epot,
+            dataclasses.replace(est, pos=est.pos.clone()))
         energetic[workload] = time_energetic(mt, cuda_substep, cuda_shift,
                                              cells, workload, ecfg, epot,
                                              est, einputs)
@@ -700,6 +1061,28 @@ def main() -> int:
             pos[c] = cuda_substep.color_substep(cfg, pot, c, pos, st.occ,
                                                 p_u, dsp)[0]
     times["substep_plain"] = cuda_ms(plain_sweep_substeps, PLAIN_RUNS)
+    # the NPT form on the same input
+    scale = npt_scale(NPT_TIME_SCALE)
+    s2 = cuda_substep.scale_squared(scale, torch.float32, "cuda")
+    npt_shape = cuda_substep.kernel_shape(cuda_substep.LIB, cfg.nmax,
+                                          cfg.cells_per_color, scaled=True)
+    print(f"substep_npt shape at nmax {cfg.nmax}: {npt_shape['registers']} "
+          f"registers, {npt_shape['local_bytes']} bytes local, shared memory "
+          f"{npt_shape['static_smem']} static + {npt_shape['dynamic_smem']} "
+          f"dynamic bytes a block, {npt_shape['warps_per_sm']} resident warps"
+          f" an SM; cooperative grid {npt_shape['grid_blocks']} blocks")
+    work.copy_(before)
+    times["substep_npt"] = cuda_ms(lambda: cuda_substep.launch_kernel(
+        cfg, pot, work, st.occ, perm, 0, pick_us, disps, counts, s2),
+        TIMED_LAUNCHES)
+
+    def plain_sweep_substeps_npt():
+        pos = before.clone()
+        for j, (p_u, dsp, _) in enumerate(draws):
+            c = int(perm[j])
+            pos[c] = cuda_substep.color_substep(cfg, pot, c, pos, st.occ,
+                                                p_u, dsp, scale=scale)[0]
+    times["substep_npt_plain"] = cuda_ms(plain_sweep_substeps_npt, PLAIN_RUNS)
     s_pos, s_occ, s_axis, s_d = inputs["shift"]
     outs = (torch.empty_like(s_pos), torch.empty_like(s_occ),
             torch.zeros((), dtype=torch.int32, device="cuda"))
@@ -711,11 +1094,12 @@ def main() -> int:
     rng_ms = cuda_ms(lambda: rnd.substep(cfg, 0, 0, False), TIMED_LAUNCHES)
     sched_ms = cuda_ms(lambda: rnd.schedule(cfg, 0), TIMED_LAUNCHES)
 
-    for lib in libs.values():
-        lib.launches = 0
+    reset(libs)
 
     bounds = {
         "substep": substep_bound_ms(cfg, st, inputs["substep"], cells),
+        "substep_npt": substep_bound_ms(cfg, st, inputs["substep"], cells,
+                                        OPS_PER_PAIR_TEST + 1),
         "shift": shift_bound_ms(cfg, st),
     }
     for e_times, e_bounds, _ in energetic.values():
@@ -728,6 +1112,10 @@ def main() -> int:
     paths = {workload: run_energetic_main_path(
         mt, bench, libs, workload, cuda_substep.kernel_stats("cuda"))
         for workload in ENERGETIC}
+    henderson = check_henderson(mt, libs)
+    npt_paths = {workload: run_npt_main_path(
+        mt, bench, libs, workload, cuda_substep.kernel_stats("cuda"),
+        paths[workload]) for workload in NPT}
     for res in (main64, main8):
         print(f"hard disks, n_moves {res['n_moves']}: {res['value']:.6e} "
               f"moves/s, {res['ms_per_sweep']:.6f} ms/sweep ({smi}); "
@@ -753,13 +1141,40 @@ def main() -> int:
               f"{times[w['substep']]:.6f} ms, random draws 8 x "
               f"{e_rng_ms:.6f} ms, 3D shift kernel {times[w['shift']]:.6f} "
               "ms")
+    for workload, res in npt_paths.items():
+        print(f"{workload} NPT (P {res['pressure']}, dlnv_max "
+              f"{res['dlnv_max']}), n_moves {res['n_moves']}: "
+              f"{res['value']:.6e} moves/s, {res['ms_per_sweep']:.6f} ms per "
+              f"NPT sweep against {res['nvt_ms_per_sweep']:.6f} ms per NVT "
+              f"sweep; volume move {res['volume_move_ms']:.6f} ms "
+              f"({res['volume_move_share']:.4f} of an NPT sweep), peak "
+              f"{res['volume_move_peak_bytes'] / 2**30:.3f} GiB above the "
+              f"state; volume acceptance {res['volume_acceptance']:.4f} "
+              f"({res['volume_accepted']} of {res['volume_moves']}); final "
+              f"scale {res['scale_final']:.7f}, density "
+              f"{res['density_final']:.6f}; carried energy gap "
+              f"{res['carried_energy_rel_err']:.3e} ({smi})")
+        print(f"{workload} NPT volume moves of the warm-up: float32 dU - "
+              f"float64 dU at most {res['du_f32_minus_f64_max']:.6f} (mean "
+              f"{res['du_f32_minus_f64_mean']:.6f}; beta x max "
+              f"{res['beta_du_gap_max']:.6f}; mean |dU| "
+              f"{res['du_f64_abs_mean']:.3f}); of it the carried energy "
+              f"against a fresh float32 total at most "
+              f"{res['carried_minus_fresh_f32_max']:.6f}, two fresh float32 "
+              f"totals' dU against float64 at most "
+              f"{res['du_fresh_f32_minus_f64_max']:.6f}; one-ring refusals "
+              f"{res['one_ring_refusals']}; {res['overflow_cells']} of "
+              f"{res['cell_launches']} cell sub-steps took the overflow pass")
     for name, (b, by) in bounds.items():
         print(f"{name}: kernel {times[name]:.6f} ms, bound {b:.6f} ms ({by}),"
               f" plain {times[name + '_plain']:.3f} ms")
 
     sources = {"substep": "substep.cu", "substep_lj3d": "substep_lj.cu",
                "substep_ka3d": "substep_mix.cu", "shift": "shift.cu",
-               "shift3d": "shift.cu", "shift_ka3d": "shift.cu"}
+               "shift3d": "shift.cu", "shift_ka3d": "shift.cu",
+               "substep_npt": "substep.cu",
+               "substep_lj3d_npt": "substep_lj.cu",
+               "substep_ka3d_npt": "substep_mix.cu"}
     replaces = {
         "substep": "mcjax/ops/pallas_ring.py:919, mcjax/ops/pallas_ring.py:495",
         "substep_lj3d": "mcjax/ops/pallas_sweep.py:1348, "
@@ -770,6 +1185,13 @@ def main() -> int:
         "shift": "mcjax/ops/pallas_ring.py:1246, mcjax/ops/pallas_shift.py:194",
         "shift3d": "mcjax/ops/pallas_shift.py:194",
         "shift_ka3d": "mcjax/ops/pallas_ring.py:1246",
+        "substep_npt": "mcjax/ops/pallas_ring.py:919, "
+                       "mcjax/ops/pallas_ring.py:495",
+        "substep_lj3d_npt": "mcjax/ops/pallas_sweep.py:1348, "
+                            "mcjax/ops/pallas_sweep.py:878, "
+                            "mcjax/ops/pallas_ring.py:495",
+        "substep_ka3d_npt": "mcjax/ops/pallas_sweep.py:1348, "
+                            "mcjax/ops/pallas_sweep.py:878",
     }
     launches = {"substep": main64["launches"]["substep"],
                 "shift": main64["launches"]["shift"]}
@@ -777,6 +1199,12 @@ def main() -> int:
         w = ENERGETIC[workload]
         launches[w["substep"]] = res["launches"][w["lib"]]
         launches[w["shift"]] = res["launches"]["shift"]
+    # NPT forms: the lj3d and ka3d NPT main paths; the 2D form, whose main
+    # path (1M disks) is NVT, the hard-disk NPT run
+    launches["substep_npt"] = henderson["launches"]
+    for workload, res in npt_paths.items():
+        w = ENERGETIC[workload]
+        launches[w["substep"] + "_npt"] = res["launches"][w["lib"]]
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"mcjax_torch/csrc/{sources[name]}",

@@ -2,7 +2,8 @@
 
 Checkerboard-decomposed, cell-list Metropolis Monte Carlo on color-blocked
 slabs, with the JAX package's state layout: 2D hard disks, 3D Lennard-Jones
-and 3D binary Lennard-Jones mixtures (Kob-Andersen) so far. Each color
+and 3D binary Lennard-Jones mixtures (Kob-Andersen) so far, in the NVT
+ensemble and in the NPT one (ln-V volume moves, ``run_npt``). Each color
 sub-step and each grid shift runs as a hand-written CUDA kernel on the
 card; on the CPU the same entry points run plain PyTorch versions that
 match the JAX package (bit for bit for hard disks; for the energetic models
@@ -19,6 +20,8 @@ from mcjax_torch.core.state import SimState, init_state, zeros_state
 from mcjax_torch.models.mixtures import LJMixture, kob_andersen
 from mcjax_torch.models.potentials import HardSphere, LennardJones
 from mcjax_torch.ops.mixture import init_mixture_state, unbin_mixture
+from mcjax_torch.ops.npt import (NPTMetrics, NPTState, init_npt, npt_sweep,
+                                 run_npt)
 from mcjax_torch.ops.random import RandomProvider, TorchRandoms
 from mcjax_torch.ops.sweep import (SweepMetrics, mc_sweep, run_sweeps,
                                    total_energy_cells)
@@ -30,6 +33,8 @@ __all__ = [
     "HardSphere",
     "LJMixture",
     "LennardJones",
+    "NPTMetrics",
+    "NPTState",
     "RandomProvider",
     "SimConfig",
     "SimState",
@@ -37,9 +42,12 @@ __all__ = [
     "SweepMetrics",
     "TorchRandoms",
     "init_mixture_state",
+    "init_npt",
     "init_state",
     "kob_andersen",
     "mc_sweep",
+    "npt_sweep",
+    "run_npt",
     "run_sweeps",
     "state_from_numpy",
     "state_to_numpy",

@@ -45,13 +45,16 @@ class CudaLibrary:
 
     ``signatures`` maps each C entry point to its ctypes argument types.
     ``launches`` is a plain int that ``launch`` adds one to for every kernel
-    launch; callers reset it to 0 to count the launches of one run.
+    launch, and ``npt_launches`` one for every launch of a kernel's NPT
+    form among them; callers reset both to 0 to count the launches of one
+    run.
     """
 
     def __init__(self, name: str, signatures: dict[str, list]):
         self.name = name
         self.signatures = signatures
         self.launches = 0
+        self.npt_launches = 0
         self.build_log = ""
         self._lib: ctypes.CDLL | None = None
 
@@ -93,12 +96,14 @@ class CudaLibrary:
             self._lib = lib
         return self._lib
 
-    def launch(self, fn: str, *args) -> None:
-        """Call entry ``fn``; raise if the launch reported a CUDA error."""
+    def launch(self, fn: str, *args, npt: bool = False) -> None:
+        """Call entry ``fn`` (which launches a kernel's NPT form if ``npt``);
+        raise if the launch reported a CUDA error."""
         err = getattr(self.load(), fn)(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {err}")
         self.launches += 1
+        self.npt_launches += npt
 
 
 def build_all(libs: list[CudaLibrary]) -> float:

@@ -54,6 +54,14 @@
 // bound), written out with __fmaf_rn, so results match the JAX package bit
 // for bit. Pick, proposal, out-of-cell and overlap tests are the plain
 // version's operations in its order.
+//
+// NPT form (kScale, a template parameter; the NVT kernel is compiled
+// without it, as mcjax's static use_scale compiles it out): s^2 = f32(s *
+// s) of the box scale, read from device memory once per thread, multiplies
+// every squared distance (__fmul_rn(s2, r2)) before the overlap test, as
+// the plain version and mcjax do; the stored-frame culling reach is the
+// host's reach2 / s^2 (__fdiv_rn), which ops/cuda_substep.py shows stays
+// exact.
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -100,6 +108,19 @@ __device__ __forceinline__ float sq_dist(float a0, float a1, float b0,
   const float e0 = __fsub_rn(a0, b0);
   const float e1 = __fsub_rn(a1, b1);
   return __fmaf_rn(e1, e1, __fmul_rn(e0, e0));
+}
+
+// The pair's squared distance as the overlap test sees it: s^2 r2 in the
+// NPT form.
+template <bool kScale>
+__device__ __forceinline__ float pair_r2(float s2, float a0, float a1,
+                                         float b0, float b1) {
+  const float r2 = sq_dist(a0, a1, b0, b1);
+  if constexpr (kScale) {
+    return __fmul_rn(s2, r2);
+  } else {
+    return r2;
+  }
 }
 
 __device__ __forceinline__ Cell make_cell(int cell, int color,
@@ -170,14 +191,14 @@ __device__ __forceinline__ int visit_frozen(const float* pos,
 // with the frozen slots read again from device memory on every move (the
 // overflow pass). Kept apart from the kernel's move loop, which stays
 // lean in registers; the decisions are the same.
-template <int NMAX>
+template <int NMAX, bool kScale>
 __device__ __noinline__ unsigned overflow_moves(const float* pos,
                                                 const int* __restrict__ occ,
                                                 int cell, int color,
                                                 int my_occ, float2* mine,
                                                 const float* pick_u,
                                                 const float* disp,
-                                                Geometry g) {
+                                                Geometry g, float s2) {
   const Cell c = make_cell(cell, color, g);
   const int P = g.H * g.W;
   const float occ_f = static_cast<float>(my_occ);
@@ -198,10 +219,10 @@ __device__ __noinline__ unsigned overflow_moves(const float* pos,
     bool overlap = false;
     for (int s = 0; s < my_occ; ++s) {
       const float2 o = mine[s * kThreads];
-      overlap |= s != p && sq_dist(new0, new1, o.x, o.y) < g.dia2;
+      overlap |= s != p && pair_r2<kScale>(s2, new0, new1, o.x, o.y) < g.dia2;
     }
     visit_frozen<NMAX>(pos, occ, c, g, [&](int, float x0, float x1) {
-      overlap |= sq_dist(new0, new1, x0, x1) < g.dia2;
+      overlap |= pair_r2<kScale>(s2, new0, new1, x0, x1) < g.dia2;
     });
     if (!overlap) {
       mine[p * kThreads] = make_float2(new0, new1);
@@ -211,12 +232,14 @@ __device__ __noinline__ unsigned overflow_moves(const float* pos,
   return accepted;
 }
 
-template <int NMAX>
+// The NPT form reads s^2 from s2p.
+template <int NMAX, bool kScale>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 substeps_kernel(float* pos, const int* __restrict__ occ,
                 const int* __restrict__ perm, int start, int n, Draws draws,
                 unsigned long long* __restrict__ counts,
-                unsigned long long* __restrict__ stats, Geometry g) {
+                unsigned long long* __restrict__ stats, Geometry g,
+                const float* __restrict__ s2p) {
   // Slot s of a thread at slots[s * kThreads + threadIdx.x], NMAX +
   // kFrozenCap rows: the own slots, then the kept frozen slots; after them
   // the ring of draws, kAhead + 1 moves of (pick_u, dx, dy).
@@ -228,6 +251,11 @@ substeps_kernel(float* pos, const int* __restrict__ occ,
                                                      kThreads) + tid;
   const int P = g.H * g.W;
   const size_t plane = static_cast<size_t>(NMAX) * P;
+  float s2 = 1.f;
+  if constexpr (kScale) {
+    s2 = __ldg(s2p);
+    g.reach2 = __fdiv_rn(g.reach2, s2);
+  }
   if (tid == 0) block_sum[0] = block_sum[1] = 0;
   __syncthreads();
 
@@ -270,8 +298,9 @@ substeps_kernel(float* pos, const int* __restrict__ occ,
       if (kept > kFrozenCap) {
         atomicAdd(&stats[0], 1ull);
         __pipeline_wait_prior(0);
-        accepted += overflow_moves<NMAX>(pos, occ, cell, color, my_occ,
-                                         mine, pick_u, disp, g);
+        accepted += overflow_moves<NMAX, kScale>(pos, occ, cell, color,
+                                                 my_occ, mine, pick_u, disp,
+                                                 g, s2);
       } else {
         const float occ_f = static_cast<float>(my_occ);
         const int n_test = my_occ + kept;
@@ -310,7 +339,7 @@ substeps_kernel(float* pos, const int* __restrict__ occ,
 #pragma unroll 4
           for (int s = 0; s < n_test; ++s) {
             const float2 o = mine[s * kThreads];
-            overlap |= sq_dist(new0, new1, o.x, o.y) < g.dia2;
+            overlap |= pair_r2<kScale>(s2, new0, new1, o.x, o.y) < g.dia2;
           }
           if (!overlap) {
             mine[p * kThreads] = make_float2(new0, new1);
@@ -353,7 +382,7 @@ struct Shape {
   int local_bytes = 0;
 };
 
-template <int NMAX>
+template <int NMAX, bool kScale>
 int shape_for(Shape* out) {
   static Shape cache;
   static int cache_dev = -1;
@@ -367,15 +396,15 @@ int shape_for(Shape* out) {
   Shape s;
   s.smem = ((NMAX + kFrozenCap) * 2 + 3 * (kAhead + 1)) * kThreads *
            static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(substeps_kernel<NMAX>,
+  err = cudaFuncSetAttribute(substeps_kernel<NMAX, kScale>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              static_cast<int>(cudaSharedmemCarveoutMaxShared));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, substeps_kernel<NMAX>);
+  err = cudaFuncGetAttributes(&fa, substeps_kernel<NMAX, kScale>);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &s.blocks_per_sm, substeps_kernel<NMAX>, kThreads, s.smem);
+      &s.blocks_per_sm, substeps_kernel<NMAX, kScale>, kThreads, s.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -393,22 +422,24 @@ int grid_blocks(const Shape& s, int cells) {
   return min(s.blocks_per_sm * s.sms, (cells + kThreads - 1) / kThreads);
 }
 
-template <int NMAX>
+template <int NMAX, bool kScale>
 int launch(float* pos, const int* occ, const int* perm, int start, int n,
            const Draws& draws, unsigned long long* counts,
-           unsigned long long* stats, const Geometry& g,
+           unsigned long long* stats, const Geometry& g, const float* s2,
            cudaStream_t stream) {
   Shape s;
-  const int err = shape_for<NMAX>(&s);
+  const int err = shape_for<NMAX, kScale>(&s);
   if (err != 0) return err;
   const int blocks = grid_blocks(s, g.H * g.W);
   if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   Draws d = draws;
   Geometry geo = g;
-  void* args[] = {&pos, &occ, &perm, &start, &n, &d, &counts, &stats, &geo};
+  void* args[] = {&pos, &occ,    &perm,  &start, &n,
+                  &d,   &counts, &stats, &geo,   &s2};
   // A launch the runtime refuses returns its error; nothing falls back.
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(substeps_kernel<NMAX>), dim3(blocks),
+      reinterpret_cast<const void*>(substeps_kernel<NMAX, kScale>),
+      dim3(blocks),
       dim3(kThreads), args, static_cast<size_t>(s.smem), stream));
 }
 
@@ -419,14 +450,19 @@ int launch(float* pos, const int* occ, const int* perm, int start, int n,
 }  // namespace
 
 // The kernel's shape at this nmax for `cells` cells a color on the current
-// device: out[0..6] = registers a thread, static and dynamic shared memory
-// a block (bytes), local memory a thread (bytes), resident warps an SM,
-// frozen slots staged a thread, and the blocks of the cooperative grid.
-extern "C" int mcjax_substep_2d_shape(int nmax, int cells, void* out) {
+// device (the NPT form's if `scaled`): out[0..6] = registers a thread,
+// static and dynamic shared memory a block (bytes), local memory a thread
+// (bytes), resident warps an SM, frozen slots staged a thread, and the
+// blocks of the cooperative grid.
+extern "C" int mcjax_substep_2d_shape(int nmax, int cells, int scaled,
+                                      void* out) {
   Shape s;
   int err = static_cast<int>(cudaErrorInvalidValue);
   switch (nmax) {
-#define MCJAX_CASE(N) case N: err = shape_for<N>(&s); break;
+#define MCJAX_CASE(N)                                                \
+  case N:                                                            \
+    err = scaled ? shape_for<N, true>(&s) : shape_for<N, false>(&s); \
+    break;
     MCJAX_NMAX_CASES(MCJAX_CASE)
 #undef MCJAX_CASE
     default:
@@ -446,13 +482,15 @@ extern "C" int mcjax_substep_2d_shape(int nmax, int cells, void* out) {
 
 // Sub-steps [start, start + n) of a sweep in one cooperative launch.
 // pick_u and disp point to n device pointers each (host arrays); counts
-// (int64 [n, 2]) must be zeroed by the caller.
+// (int64 [n, 2]) must be zeroed by the caller. A null s2 selects the NVT
+// form; otherwise the NPT form reads s^2 there.
 extern "C" int mcjax_substep_2d(void* pos, void* occ, void* perm, int start,
                                 int n, void* const* pick_u,
                                 void* const* disp, void* counts, void* stats,
                                 int H, int W, int nmax, int n_moves, float w,
                                 float half_l, float box_l, float dia2,
-                                float pad, float reach2, void* stream) {
+                                float pad, float reach2, void* s2,
+                                void* stream) {
   if (n < 1 || n > kMaxSubsteps || start < 0 || start + n > kMaxSubsteps ||
       n_moves < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -468,11 +506,15 @@ extern "C" int mcjax_substep_2d(void* pos, void* occ, void* perm, int start,
   auto* pm = static_cast<const int*>(perm);
   auto* c = static_cast<unsigned long long*>(counts);
   auto* st = static_cast<unsigned long long*>(stats);
+  auto* sq = static_cast<const float*>(s2);
   auto s = static_cast<cudaStream_t>(stream);
   int err = static_cast<int>(cudaErrorInvalidValue);
   switch (nmax) {
-#define MCJAX_CASE(N) \
-  case N: err = launch<N>(p, o, pm, start, n, d, c, st, g, s); break;
+#define MCJAX_CASE(N)                                               \
+  case N:                                                           \
+    err = sq ? launch<N, true>(p, o, pm, start, n, d, c, st, g, sq, s) \
+             : launch<N, false>(p, o, pm, start, n, d, c, st, g, sq, s); \
+    break;
     MCJAX_NMAX_CASES(MCJAX_CASE)
 #undef MCJAX_CASE
     default:

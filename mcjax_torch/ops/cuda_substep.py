@@ -29,6 +29,14 @@ by (dim, model) and raises for any other configuration:
 tensor ``substeps`` runs the plain version once per sub-step; on a CUDA
 tensor it launches the 2D kernel once for the range, or an energetic
 kernel once per sub-step.
+
+Each kernel has an NPT form, a compile-time variant (mcjax's static
+``use_scale``): given the box scale s of the stored-frame convention
+(``mcjax_torch.ops.npt``), every pair's squared distance is multiplied by
+s^2 = f32(s * s), read from device memory, before its cutoff, overlap or
+energy, in the moves and in the frozen-cache build, as the TPU kernels
+multiply by their SMEM s^2 (``mcjax/ops/pallas_sweep.py:435-446,
+:610-636``). Without a scale the NVT kernels run, unchanged.
 """
 
 from __future__ import annotations
@@ -61,9 +69,10 @@ LIB = CudaLibrary("substep", {
         ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
         ctypes.c_void_p],
-    "mcjax_substep_2d_shape": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    "mcjax_substep_2d_shape": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_void_p],
 })
 
 LIB_LJ = CudaLibrary("substep_lj", {
@@ -74,9 +83,9 @@ LIB_LJ = CudaLibrary("substep_lj", {
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
         ctypes.c_void_p],
-    "mcjax_substep_lj3d_shape": [ctypes.c_int, ctypes.c_void_p],
+    "mcjax_substep_lj3d_shape": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 })
 
 LIB_MIX = CudaLibrary("substep_mix", {
@@ -90,8 +99,9 @@ LIB_MIX = CudaLibrary("substep_mix", {
         ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p,
         ctypes.c_void_p],
-    "mcjax_substep_mix3d_shape": [ctypes.c_int, ctypes.c_void_p],
+    "mcjax_substep_mix3d_shape": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 })
 
 # Exact culling of frozen slots in the sub-step kernels. A frozen slot is
@@ -106,6 +116,15 @@ LIB_MIX = CudaLibrary("substep_mix", {
 # a mover can hold, and would have added exactly 0 (or, for hard disks,
 # never overlapped). The mixture kernel's candidate test grows each pair's
 # cutoff by the same CULL_REL; the LJ kernel's is its exact r2 <= r_cut^2.
+#
+# Under an NPT box scale s a slot interacts when f32(s^2 * r~^2) is within
+# the cutoff, so the kernels keep a slot whose squared box distance is at
+# most f32(reach2 / s^2), divided once in the kernel from the s^2 it reads.
+# The two extra roundings (of s^2 * r~^2 and of the division) add two
+# ulps to the few CULL_REL covers, and CULL_REL is still some 400 times
+# wider. The one-ring contract s w >= r_cut keeps the reach (1 + CULL_REL)
+# r_cut / s within the ring of neighbor cells but for the same margin, and
+# a slot outside the ring is never a candidate.
 CULL_REL = 1e-4
 CULL_PAD_ABS = 1e-5
 CULL_PAD_ULPS = 64
@@ -122,18 +141,33 @@ def cull_constants(cfg: SimConfig, r_cut: float) -> tuple[float, float]:
 
 
 def keep_frozen(cfg: SimConfig, r_cut: float, lower: torch.Tensor,
-                slots: torch.Tensor) -> torch.Tensor:
+                slots: torch.Tensor, scale: float | None = None
+                ) -> torch.Tensor:
     """The kernels' culling test in float32, for tests: True where a
     frozen slot at ``slots`` [..., dim] (unwrapped into the own cell's
     frame) is staged for the own cell whose lower corner is ``lower``
-    [dim] (float32, as ``cell_lower_bounds`` gives it)."""
+    [dim] (float32, as ``cell_lower_bounds`` gives it); under a box scale
+    ``scale`` with the reach divided by s^2, as the NPT kernels divide
+    it."""
     pad, reach2 = cull_constants(cfg, r_cut)
     f32 = torch.float32
     pad_t = torch.tensor(pad, dtype=f32)
     lo = lower - pad_t
     up = (lower + torch.tensor(cfg.cell_width, dtype=f32)) + pad_t
     d = torch.clamp(torch.maximum(lo - slots, slots - up), min=0.0)
-    return squared_norm(d, -1) <= torch.tensor(reach2, dtype=f32)
+    reach2_t = torch.tensor(reach2, dtype=f32)
+    if scale is not None:
+        reach2_t = reach2_t / scale_squared(scale, f32, reach2_t.device)
+    return squared_norm(d, -1) <= reach2_t
+
+
+def scale_squared(scale: torch.Tensor | float, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """s^2 of the NPT box scale s as a 0-d tensor: f32(s * s), as the JAX
+    package squares its float32 scale; in float64, the float32 s squared
+    in float64."""
+    s = torch.as_tensor(scale, dtype=torch.float32, device=device).to(dtype)
+    return s * s
 
 
 _STATE: dict[torch.device, torch.Tensor] = {}
@@ -161,22 +195,23 @@ def kernel_stats(device: torch.device) -> torch.Tensor:
     return kernel_state(device)[:2]
 
 
-def kernel_shape(lib: CudaLibrary, nmax: int, cells: int = 0) -> dict:
+def kernel_shape(lib: CudaLibrary, nmax: int, cells: int = 0,
+                 scaled: bool = False) -> dict:
     """The launch shape of a sub-step kernel at ``nmax`` on the current
-    device, from the CUDA runtime: registers a thread, static and dynamic
-    shared memory a block (bytes), local memory a thread (bytes), resident
-    warps an SM and the staged frozen slots a warp (energetic kernels) or a
-    thread (2D); for the 2D kernel also the blocks of its cooperative grid
-    at ``cells`` cells a color."""
+    device (its NPT form if ``scaled``), from the CUDA runtime: registers a
+    thread, static and dynamic shared memory a block (bytes), local memory
+    a thread (bytes), resident warps an SM and the staged frozen slots a
+    warp (energetic kernels) or a thread (2D); for the 2D kernel also the
+    blocks of its cooperative grid at ``cells`` cells a color."""
     keys = ["registers", "static_smem", "dynamic_smem", "local_bytes",
             "warps_per_sm", "staged_capacity"]
     if lib is LIB:
-        fn, args = "mcjax_substep_2d_shape", (nmax, cells)
+        fn, args = "mcjax_substep_2d_shape", (nmax, cells, int(scaled))
         keys.append("grid_blocks")
     else:
         fn = {"substep_lj": "mcjax_substep_lj3d_shape",
               "substep_mix": "mcjax_substep_mix3d_shape"}[lib.name]
-        args = (nmax,)
+        args = (nmax, int(scaled))
     out = (ctypes.c_int * len(keys))()
     err = getattr(lib.load(), fn)(*args, ctypes.addressof(out))
     if err != 0:
@@ -214,7 +249,8 @@ def cell_lower_bounds(cfg: SimConfig, color: int, bs: tuple[int, ...],
 def color_substep(cfg: SimConfig, pot: Potential, color: int,
                   pos: torch.Tensor, occ: torch.Tensor, pick_u: torch.Tensor,
                   disp: torch.Tensor, acc_u: torch.Tensor | None = None,
-                  record: dict | None = None
+                  record: dict | None = None, *,
+                  scale: torch.Tensor | float | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
     """n_moves Metropolis moves in every cell of one color (plain version).
@@ -226,7 +262,8 @@ def color_substep(cfg: SimConfig, pot: Potential, color: int,
     frozen neighbor cells. Energetic models sum the pair energy e(x) of the
     mover over the same slots at old and new and accept when
     acc_u < exp(-beta (e(new) - e(old))); ``acc_u`` [n_moves, *bs] is then
-    required.
+    required. Under an NPT box ``scale`` s every squared distance is
+    s^2 r2 (s^2 = f32(s * s)) before the overlap or the energy.
 
     ``record``, if given, receives per-cell maps over [*bs]: ``de_cell``
     (the summed dE of accepted moves), ``in_cell`` (moves of a non-empty
@@ -245,13 +282,14 @@ def color_substep(cfg: SimConfig, pot: Potential, color: int,
     slot = torch.arange(cfg.nmax, device=pos.device).reshape(
         (cfg.nmax,) + (1,) * cfg.dim)
     nbr_valid = slot[None] < nbr_occ[:, None]          # [K, nmax, *bs]
+    scaled = scaled_r2(scale, pos.device)
 
     def energy_at(x, ownp, valid_own, sel):
         """(energy, overlap) of a mover at x [dim, *bs] against its own
         cell's valid slots and the frozen neighbor slots."""
-        r2_own = squared_norm(x[:, None] - ownp, 0)              # [nmax, *bs]
+        r2_own = scaled(squared_norm(x[:, None] - ownp, 0))      # [nmax, *bs]
         e_o, ov_o = pair_interaction(pot, r2_own, valid_own)
-        r2_nbr = squared_norm(x[None, :, None] - nbrp, 1)        # [K, nmax, *bs]
+        r2_nbr = scaled(squared_norm(x[None, :, None] - nbrp, 1))  # [K, nmax, *bs]
         e_n, ov_n = pair_interaction(pot, r2_nbr, nbr_valid)
         ov = ov_o.any(dim=0) | ov_n.any(dim=1).any(dim=0)
         if not energetic:
@@ -260,6 +298,16 @@ def color_substep(cfg: SimConfig, pot: Potential, color: int,
 
     return metropolis_moves(cfg, color, pos[color], occ[color], pick_u, disp,
                             acc_u, energy_at, energetic, record)
+
+
+def scaled_r2(scale: torch.Tensor | float | None, device: torch.device):
+    """r2 -> s^2 r2 in float32 (s^2 = ``scale_squared``), as the JAX
+    package's sub-step computes ``s2 * r2``; the identity without a
+    scale."""
+    if scale is None:
+        return lambda r2: r2
+    s2 = scale_squared(scale, torch.float32, device)
+    return lambda r2: s2 * r2
 
 
 def metropolis_moves(cfg: SimConfig, color: int, ownp: torch.Tensor,
@@ -366,7 +414,7 @@ Draw = tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]
 
 def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
              occ: torch.Tensor, perm: torch.Tensor, draws: list[Draw],
-             start: int = 0
+             start: int = 0, scale: torch.Tensor | float | None = None
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sub-steps [start, start + n) of a sweep, n = len(draws): sub-step j
     works on color perm[j] with draws[j - start] = (pick_u, disp, acc_u);
@@ -380,7 +428,10 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
     CUDA tensor the 2D disk kernel runs the range in one launch and the
     energetic kernels launch once per sub-step, each reading its color
     from device memory (no host sync). A mixture's ``pos`` carries the
-    species plane after the coordinates (dim + 1 planes).
+    species plane after the coordinates (dim + 1 planes). ``scale`` (a 0-d
+    float32 tensor on pos's device, or a float) is the NPT box scale: the
+    kernels' NPT forms then read s^2 from device memory, so a scale that
+    changes on the device every sweep costs no host sync.
     """
     bs = cfg.block_shape
     mixture = getattr(pot, "is_mixture", False)
@@ -403,6 +454,8 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
                 raise ValueError("an energetic model needs acceptance "
                                  "uniforms")
             want[f"acc_u[{j}]"] = (acc_u, torch.float32, (cfg.n_moves, *bs))
+    if isinstance(scale, torch.Tensor):
+        want["scale"] = (scale, torch.float32, ())
     check_tensors(pos.device, want)
     dev = pos.device
     if dev.type == "cpu":
@@ -415,7 +468,8 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
         outs = []
         for j, draw in enumerate(draws):
             color = int(perm[start + j])
-            own_new, *out = plain(cfg, pot, color, pos, occ, *draw)
+            own_new, *out = plain(cfg, pot, color, pos, occ, *draw,
+                                  scale=scale)
             pos[color] = own_new
             outs.append(out)
         de, acc, prop = (torch.stack(t) for t in zip(*outs))
@@ -423,10 +477,12 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
     lib = kernel_library(cfg, pot)
     if dev.type != "cuda":
         raise ValueError(f"no sub-step for device {dev}")
+    s2 = None if scale is None else scale_squared(scale, torch.float32, dev)
     if lib is LIB:
         counts = torch.zeros((n, 2), dtype=torch.int64, device=dev)
         launch_kernel(cfg, pot, pos, occ, perm, start,
-                      [d[0] for d in draws], [d[1] for d in draws], counts)
+                      [d[0] for d in draws], [d[1] for d in draws], counts,
+                      s2)
         de = torch.zeros(n, dtype=torch.float32, device=dev)
         return de, counts[:, 0], counts[:, 1]
     de_map = torch.empty((n, *bs), dtype=torch.float32, device=dev)
@@ -434,7 +490,7 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
     launch = launch_lj_kernel if lib is LIB_LJ else launch_mix_kernel
     for j, (pick_u, disp, acc_u) in enumerate(draws):
         launch(cfg, pot, pos, occ, perm, start + j, pick_u, disp, acc_u,
-               de_map[j], acc_map[j])
+               de_map[j], acc_map[j], s2)
     color_occ = occ.index_select(0, perm[start:start + n])
     proposed = cfg.n_moves * (color_occ > 0).flatten(1).sum(1)
     return (de_map.flatten(1).sum(1),
@@ -444,25 +500,35 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
 def substep(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
             occ: torch.Tensor, perm: torch.Tensor, i: int,
             pick_u: torch.Tensor, disp: torch.Tensor,
-            acc_u: torch.Tensor | None = None
+            acc_u: torch.Tensor | None = None,
+            scale: torch.Tensor | float | None = None
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sub-step i of a sweep, color perm[i]: ``substeps`` with a range of
-    one (one launch on CUDA). Returns (dE, accepted, proposed) as 0-d
-    tensors (float32, int64, int64) on pos's device."""
+    one (one launch on CUDA), at box scale ``scale``. Returns (dE,
+    accepted, proposed) as 0-d tensors (float32, int64, int64) on pos's
+    device."""
     de, acc, prop = substeps(cfg, pot, pos, occ, perm,
-                             [(pick_u, disp, acc_u)], start=i)
+                             [(pick_u, disp, acc_u)], start=i, scale=scale)
     return de[0], acc[0], prop[0]
+
+
+def s2_pointer(s2: torch.Tensor | None) -> int | None:
+    """The device pointer to a float32 s^2 (0-d) that selects a kernel's
+    NPT form, or None (a null pointer: the NVT form)."""
+    return None if s2 is None else s2.data_ptr()
 
 
 def launch_kernel(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
                   occ: torch.Tensor, perm: torch.Tensor, start: int,
                   pick_us: list[torch.Tensor], disps: list[torch.Tensor],
-                  counts: torch.Tensor) -> None:
+                  counts: torch.Tensor, s2: torch.Tensor | None = None
+                  ) -> None:
     """One cooperative launch of the 2D disk kernel on inputs ``substeps``
     has checked: sub-steps [start, start + len(pick_us)), in place on pos,
     adding each sub-step's accepted and proposed moves to ``counts``
     (int64 [n, 2], zeroed by the caller) and the cells that took the
-    overflow pass to ``kernel_stats``."""
+    overflow pass to ``kernel_stats``. ``s2`` (float32 0-d on the device)
+    selects the NPT form, which reads s^2 from it."""
     h, w = cfg.block_shape
     n = len(pick_us)
     ptrs = ctypes.c_void_p * n
@@ -475,20 +541,22 @@ def launch_kernel(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
         h, w, cfg.nmax, cfg.n_moves,
         cfg.cell_width, cfg.box_length / 2.0, cfg.box_length,
         pot.diameter * pot.diameter, *cull_constants(cfg, pot.diameter),
-        torch.cuda.current_stream(pos.device).cuda_stream)
+        s2_pointer(s2), torch.cuda.current_stream(pos.device).cuda_stream,
+        npt=s2 is not None)
 
 
 def launch_lj_kernel(cfg: SimConfig, pot: LennardJones, pos: torch.Tensor,
                      occ: torch.Tensor, perm: torch.Tensor, i: int,
                      pick_u: torch.Tensor, disp: torch.Tensor,
                      acc_u: torch.Tensor, de_map: torch.Tensor,
-                     acc_map: torch.Tensor) -> None:
+                     acc_map: torch.Tensor, s2: torch.Tensor | None = None
+                     ) -> None:
     """One launch of the 3D LJ kernel on inputs ``substep`` has checked:
     updates pos[perm[i]] in place and writes each cell's summed dE of
     accepted moves into ``de_map`` (float32 [*bs]) and its accept count into
     ``acc_map`` (int32 [*bs]); adds to ``kernel_stats``. The model's
     constants go in as the float32 values the plain version rounds them
-    to."""
+    to. ``s2`` selects the NPT form, as for ``launch_kernel``."""
     LIB_LJ.launch(
         "mcjax_substep_lj3d",
         pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), i,
@@ -499,7 +567,8 @@ def launch_lj_kernel(cfg: SimConfig, pot: LennardJones, pos: torch.Tensor,
         cfg.cell_width, cfg.box_length / 2.0, cfg.box_length, cfg.beta,
         pot.sigma * pot.sigma, 4.0 * pot.epsilon, pot.shift_value,
         pot.r_cut * pot.r_cut, *cull_constants(cfg, pot.r_cut),
-        torch.cuda.current_stream(pos.device).cuda_stream)
+        s2_pointer(s2), torch.cuda.current_stream(pos.device).cuda_stream,
+        npt=s2 is not None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -523,12 +592,13 @@ def launch_mix_kernel(cfg: SimConfig, pot: LJMixture, pos: torch.Tensor,
                       occ: torch.Tensor, perm: torch.Tensor, i: int,
                       pick_u: torch.Tensor, disp: torch.Tensor,
                       acc_u: torch.Tensor, de_map: torch.Tensor,
-                      acc_map: torch.Tensor) -> None:
+                      acc_map: torch.Tensor, s2: torch.Tensor | None = None
+                      ) -> None:
     """One launch of the 3D mixture kernel on inputs ``substep`` has
     checked: updates the coordinates of pos[perm[i]] in place and writes
     each cell's summed dE of accepted moves into ``de_map`` and its accept
     count into ``acc_map``, and adds to ``kernel_stats``, as
-    ``launch_lj_kernel`` does."""
+    ``launch_lj_kernel`` does (``s2`` likewise)."""
     LIB_MIX.launch(
         "mcjax_substep_mix3d",
         pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), i,
@@ -538,4 +608,5 @@ def launch_mix_kernel(cfg: SimConfig, pot: LJMixture, pos: torch.Tensor,
         cfg.half_cps, cfg.nmax, cfg.n_moves,
         cfg.cell_width, cfg.box_length / 2.0, cfg.box_length, cfg.beta,
         *mixture_constants(pot), *cull_constants(cfg, pot.r_cut),
-        torch.cuda.current_stream(pos.device).cuda_stream)
+        s2_pointer(s2), torch.cuda.current_stream(pos.device).cuda_stream,
+        npt=s2 is not None)

@@ -20,7 +20,8 @@ from mcjax_torch.core.device import resolve_device
 from mcjax_torch.core.geometry import min_image
 from mcjax_torch.core.state import SimState
 from mcjax_torch.ops import cells
-from mcjax_torch.ops.cuda_substep import metropolis_moves, squared_norm
+from mcjax_torch.ops.cuda_substep import (metropolis_moves, scaled_r2,
+                                          squared_norm)
 
 
 def init_mixture_state(cfg: SimConfig, positions: torch.Tensor,
@@ -68,16 +69,16 @@ def color_substep_mixture(cfg: SimConfig, pot, color: int, pos: torch.Tensor,
     each pair term is ``pot.pair_energy_s(r2, s_mover, s_other)``. The
     species plane is frozen during the moves and re-attached on return.
     ``record`` receives the per-cell maps of ``color_substep`` (``de_cell``,
-    ``in_cell``, ``margin``). The JAX package's NPT ``scale`` and external
+    ``in_cell``, ``margin``). Under an NPT box ``scale`` s every squared
+    distance is s^2 r2, as in ``color_substep``. The JAX package's external
     ``field`` / ``origin`` terms are not ported; passing one raises.
 
     Returns (new own-color block [dim + 1, nmax, *bs], dE, accepted,
     proposed) as ``color_substep`` does.
     """
-    if scale is not None or field is not None or origin is not None:
+    if field is not None or origin is not None:
         raise NotImplementedError(
-            "the NPT scale and external-field forms of the mixture sub-step "
-            "are not ported")
+            "the external-field form of the mixture sub-step is not ported")
     dim = cfg.dim
     own = pos[color]                                   # [dim+1, nmax, *bs]
     ownp, ownspec = own[:dim], own[dim]
@@ -87,16 +88,17 @@ def color_substep_mixture(cfg: SimConfig, pot, color: int, pos: torch.Tensor,
     slot = torch.arange(cfg.nmax, device=pos.device).reshape(
         (cfg.nmax,) + (1,) * dim)
     nbr_valid = slot[None] < nbr_occ[:, None]          # [K, nmax, *bs]
+    scaled = scaled_r2(scale, pos.device)
 
     def energy_at(x, ownp_cur, valid_own, sel):
         """(energy, overlap) of the mover, of the species in its slot, at
         x [dim, *bs] against its own cell's valid slots and the frozen
         neighbor slots."""
         sx = torch.where(sel, ownspec, 0.0).sum(dim=0)             # [*bs]
-        r2_own = squared_norm(x[:, None] - ownp_cur, 0)            # [nmax, *bs]
+        r2_own = scaled(squared_norm(x[:, None] - ownp_cur, 0))    # [nmax, *bs]
         e_o = torch.where(valid_own,
                           pot.pair_energy_s(r2_own, sx[None], ownspec), 0.0)
-        r2_nbr = squared_norm(x[None, :, None] - nbrp, 1)      # [K, nmax, *bs]
+        r2_nbr = scaled(squared_norm(x[None, :, None] - nbrp, 1))  # [K, nmax, *bs]
         e_n = torch.where(nbr_valid, pot.pair_energy_s(r2_nbr, sx[None, None],
                                                        nbrspec), 0.0)
         ov = torch.zeros_like(sx, dtype=torch.bool)
@@ -125,7 +127,8 @@ def _species_blocks(cfg: SimConfig, pos: torch.Tensor, occ: torch.Tensor,
 
 def total_interaction_cells_mixture(cfg: SimConfig, pot, pos: torch.Tensor,
                                     occ: torch.Tensor,
-                                    dtype: torch.dtype = torch.float32
+                                    dtype: torch.dtype = torch.float32,
+                                    scale: torch.Tensor | float | None = None
                                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """(total energy, any overlap) of a mixture state via cell lists: the
     anchor the summed dE of a run is held against.
@@ -133,14 +136,15 @@ def total_interaction_cells_mixture(cfg: SimConfig, pot, pos: torch.Tensor,
     In float32 this is the JAX package's computation term by term (the sum
     runs in PyTorch's order, not XLA's); ``dtype=torch.float64``
     differences the stored float32 coordinates, evaluates the pair terms
-    and sums in float64.
+    and sums in float64. ``scale`` is the NPT box scale (pair distances
+    s^2 r~^2, ``sweep.cell_pairs``).
     """
     from mcjax_torch.ops.sweep import cell_pairs
 
     total = torch.zeros((), dtype=dtype, device=pos.device)
     any_ov = torch.zeros((), dtype=torch.bool, device=pos.device)
     for (r2, valid), (si, sj) in zip(
-            cell_pairs(cfg, pos, occ, dtype),
+            cell_pairs(cfg, pos, occ, dtype, scale),
             _species_blocks(cfg, pos, occ, dtype)):
         e = torch.where(valid, pot.pair_energy_s(r2, si, sj), 0.0)
         total = total + 0.5 * e.sum()

@@ -24,7 +24,8 @@ class StateInvariantError(AssertionError):
 def validate_state(cfg: SimConfig, state: SimState,
                    pot: Potential | None = None,
                    expect_atoms: int | None = None,
-                   expect_species: list[int] | None = None
+                   expect_species: list[int] | None = None,
+                   scale: float | None = None
                    ) -> dict[str, float]:
     """Check every structural invariant of a SimState; raise on violation.
 
@@ -33,7 +34,8 @@ def validate_state(cfg: SimConfig, state: SimState,
     3. every live slot lies inside its cell's exact bounds, up to a slack;
     4. coordinates are inside the box, up to the same slack;
     5. (optional, hard-core models) no two particles closer than the
-       diameter, up to a slack;
+       diameter, up to a slack; under an NPT box ``scale`` s the distance
+       is s times the stored one;
     6. (mixture states, whose pos carries a species plane after the dim
        coordinate planes) every live species id is an integer in [0, S),
        S from a mixture ``pot`` or from ``expect_species``, and, when
@@ -109,7 +111,8 @@ def validate_state(cfg: SimConfig, state: SimState,
 
     depth = 0.0
     if pot is not None and pot.has_hard_core:
-        depth = max(0.0, pot.r_cut - min_pair_distance(cfg, pos, occ)) / ulp
+        s = 1.0 if scale is None else float(scale)
+        depth = max(0.0, pot.r_cut - s * min_pair_distance(cfg, pos, occ)) / ulp
         if depth > 16:
             raise StateInvariantError(
                 f"hard-core overlap {depth:.2f} ulps of L/2 = {ulp:.3g} deep")

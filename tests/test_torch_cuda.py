@@ -154,12 +154,13 @@ def _f32_steps(x, ulps):
     return t
 
 
-def _disk_edge_state(ulps, device):
+def _disk_edge_state(ulps, device, reach=1.0):
     """A 2D state on the culling boundary. Each of 8 own cells of color 0
     holds one disk on the face or corner of its cell that faces one of the
     8 neighbor directions (on the cell's bound: its lower bound, or the
-    float32 below its upper bound); that neighbor holds one disk at the
-    diameter (1) from it along the direction, moved ``ulps`` float32 ulps
+    float32 below its upper bound); that neighbor holds one disk at
+    ``reach`` (the diameter, 1, or the stored-frame diameter 1 / s of an
+    NPT scale s) from it along the direction, moved ``ulps`` float32 ulps
     along the direction on each axis it faces. Returns (cfg, pot, state)."""
     cfg = mt.SimConfig(dim=2, n_atoms=16, box_length=32.0, cells_per_side=16,
                        nmax=4, n_moves=1, proposal="uniform", step_size=0.18,
@@ -177,7 +178,7 @@ def _disk_edge_state(ulps, device):
                          _f32_steps(hi[a], -1) if dvec[a] > 0 else
                          lb[a] + w / 2 for a in range(2)])
         norm = math.sqrt(sum(v * v for v in dvec))
-        y = x + torch.tensor([v / norm for v in dvec])
+        y = x + torch.tensor([reach * v / norm for v in dvec])
         y = torch.stack([_f32_steps(y[a], ulps * dvec[a]) if dvec[a] else y[a]
                          for a in range(2)])
         occ[(0, *blk)] = 1
@@ -216,6 +217,64 @@ def test_disk_kernel_at_the_cull_edge(cuda, ulps):
     assert int(prop) == 8
     if abs(ulps) >= 2:
         assert int(acc) == (8 if ulps > 0 else 0)
+
+
+@pytest.mark.parametrize("scale", [0.97, 1.03])
+@pytest.mark.parametrize("ulps", [-4, -1, 1, 4])
+def test_disk_npt_kernel_at_the_cull_edge(cuda, ulps, scale):
+    """The NPT form at the culling edge: frozen disks 1-4 float32 ulps in
+    and out of the stored-frame diameter 1 / s, where the kernel's reach is
+    its own division by s^2; the kernel equals the plain version at that
+    scale bit for bit."""
+    cfg, pot, st = _disk_edge_state(ulps, cuda, 1.0 / scale)
+    bs = cfg.block_shape
+    perm = torch.arange(4, dtype=torch.int32, device=cuda)
+    pick_u = torch.zeros((1, *bs), device=cuda)
+    disp = torch.zeros((1, 2, *bs), device=cuda)
+    s = torch.tensor(scale, device=cuda)
+    own, _, acc, prop = cuda_substep.color_substep(
+        cfg, pot, 0, st.pos, st.occ, pick_u, disp, scale=s)
+    _, k_acc, k_prop = cuda_substep.substep(cfg, pot, st.pos, st.occ, perm,
+                                            0, pick_u, disp, scale=s)
+    torch.cuda.synchronize()
+    assert torch.equal(st.pos[0].view(torch.int32), own.view(torch.int32))
+    assert (int(k_acc), int(k_prop)) == (int(acc), int(prop))
+    assert int(prop) == 8
+
+
+@pytest.mark.parametrize("case", [(4096, 7), (1000, 5), "full"])
+@pytest.mark.parametrize("scale", [0.97, 1.0, 1.03])
+def test_one_launch_npt_substeps_match_plain(cuda, case, scale):
+    """The 2D kernel's NPT form, one launch of a sweep's 4 sub-steps at
+    box scale s, against 4 plain sub-steps at s bit for bit (pos and the
+    counts); at s = 1 also against the NVT kernel. In the ``full`` case the
+    overflow pass runs."""
+    cfg, pot, st, rnd = _disk_case(case, cuda)
+    perm, _, _ = rnd.schedule(cfg, st.sweep)
+    draws = [rnd.substep(cfg, st.sweep, i, False) for i in range(4)]
+    s = torch.tensor(scale, device=cuda)
+    plain, acc, prop = st.pos.clone(), [], []
+    for i, (pick_u, disp, _) in enumerate(draws):
+        color = int(perm[i])
+        own, _, a, p = cuda_substep.color_substep(cfg, pot, color, plain,
+                                                  st.occ, pick_u, disp,
+                                                  scale=s)
+        plain[color] = own
+        acc.append(int(a))
+        prop.append(int(p))
+    nvt = st.pos.clone()
+    if scale == 1.0:
+        cuda_substep.substeps(cfg, pot, nvt, st.occ, perm, draws)
+    before = (cuda_substep.LIB.launches, cuda_substep.LIB.npt_launches)
+    _, k_acc, k_prop = cuda_substep.substeps(cfg, pot, st.pos, st.occ, perm,
+                                             draws, scale=s)
+    torch.cuda.synchronize()
+    assert (cuda_substep.LIB.launches, cuda_substep.LIB.npt_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(st.pos.view(torch.int32), plain.view(torch.int32))
+    assert k_acc.tolist() == acc and k_prop.tolist() == prop
+    if scale == 1.0:
+        assert torch.equal(st.pos.view(torch.int32), nvt.view(torch.int32))
 
 
 def _full_cells(cfg, st, seed):
@@ -340,12 +399,13 @@ def _energetic_case(case, device):
             warm)
 
 
-def _energetic_kernel_matches_plain(cuda, case, lib, plain):
+def _energetic_kernel_matches_plain(cuda, case, lib, plain, scale=None):
     """The sub-step kernel of ``lib`` against its plain version for all 8
     colors (bit for bit outside cells where a decision came within a
     relative 1e-5 of a tie; dE per sub-step within 1e-5 relative + 1e-4),
     then the shift kernel bit for bit; returns (cfg, pot, state) and the
-    kernels' counters over the 8 sub-steps."""
+    kernels' counters over the 8 sub-steps. With a box ``scale`` the
+    kernel's NPT form runs, and the plain version at that scale."""
     cfg, pot, st, warm = _energetic_case(case, cuda)
     seed = cfg.n_atoms + cfg.nmax
     rnd = TorchRandoms(torch.Generator(cuda).manual_seed(seed))
@@ -354,17 +414,19 @@ def _energetic_kernel_matches_plain(cuda, case, lib, plain):
     perm, axis, d = rnd.schedule(cfg, st.sweep)
     stats = cuda_substep.kernel_stats(cuda)
     stats.zero_()
+    s = None if scale is None else torch.tensor(scale, device=cuda)
     for i in range(cfg.n_colors):
         pick_u, disp, acc_u = rnd.substep(cfg, st.sweep, i, True)
         color = int(perm[i])
         rec = {}
         own, de, acc, prop = plain(cfg, pot, color, st.pos, st.occ, pick_u,
-                                   disp, acc_u, rec)
-        before = lib.launches
+                                   disp, acc_u, rec, scale=s)
+        before = (lib.launches, lib.npt_launches)
         k_de, k_acc, k_prop = cuda_substep.substep(
-            cfg, pot, st.pos, st.occ, perm, i, pick_u, disp, acc_u)
+            cfg, pot, st.pos, st.occ, perm, i, pick_u, disp, acc_u, s)
         torch.cuda.synchronize()
-        assert lib.launches == before + 1
+        assert (lib.launches, lib.npt_launches) == (
+            before[0] + 1, before[1] + (s is not None))
         differs = (st.pos[color].view(torch.int32)
                    != own.view(torch.int32)).any(dim=0).any(dim=0)
         ties = rec["margin"] <= 1e-5
@@ -445,6 +507,51 @@ def test_mixture_kernel_matches_plain(cuda, n, nmax):
                       expect_species=[cfg.n_atoms - n_b, n_b])
 
 
+@pytest.mark.parametrize("model,layout", [("lj", (4000, 24)), ("lj", "full"),
+                                          ("ka", (4500, 34)), ("ka", "full")])
+@pytest.mark.parametrize("scale", [0.99, 1.02])
+def test_energetic_npt_kernels_match_plain(cuda, model, layout, scale):
+    """The NPT forms of the LJ and mixture sub-step kernels at box scale s
+    (within the one-ring contract of every case) against their plain
+    versions at s, under the near-tie rule, for all 8 colors; ``full``
+    runs the overflow pass."""
+    lib, plain = ((cuda_substep.LIB_LJ, cuda_substep.color_substep)
+                  if model == "lj" else
+                  (cuda_substep.LIB_MIX, mixture.color_substep_mixture))
+    _, _, _, counts = _energetic_kernel_matches_plain(
+        cuda, (model, layout), lib, plain, scale)
+    assert counts[1] > 0
+    if layout == "full":
+        assert counts[0] > 0
+
+
+@pytest.mark.parametrize("model", ["lj", "ka"])
+def test_energetic_npt_kernel_at_scale_one_is_nvt(cuda, model):
+    """At s = 1 (s^2 = 1 exactly) the NPT form equals the NVT kernel bit
+    for bit: positions and both per-cell maps, for all 8 colors."""
+    build = bench.build_lj3d if model == "lj" else bench.build_ka3d
+    n, nmax = (4000, 24) if model == "lj" else (4500, 34)
+    cfg, pot, st = build(n, nmax, 16, device=cuda)
+    launch = (cuda_substep.launch_lj_kernel if model == "lj"
+              else cuda_substep.launch_mix_kernel)
+    rnd = TorchRandoms(torch.Generator(cuda).manual_seed(n))
+    st, _ = mt.run_sweeps(cfg, pot, st, 2, rnd)
+    perm, _, _ = rnd.schedule(cfg, st.sweep)
+    one = torch.ones((), device=cuda)
+    for i in range(cfg.n_colors):
+        draws = rnd.substep(cfg, st.sweep, i, True)
+        nvt = st.pos.clone()
+        maps = [torch.empty(cfg.block_shape, dtype=t, device=cuda)
+                for t in (torch.float32, torch.int32) * 2]
+        launch(cfg, pot, nvt, st.occ, perm, i, *draws, *maps[:2])
+        launch(cfg, pot, st.pos, st.occ, perm, i, *draws, *maps[2:], one)
+        torch.cuda.synchronize()
+        assert torch.equal(st.pos.view(torch.int32), nvt.view(torch.int32))
+        assert torch.equal(maps[0].view(torch.int32),
+                           maps[2].view(torch.int32))
+        assert torch.equal(maps[1], maps[3])
+
+
 def _f32_step(x: float, ulps: int) -> float:
     """x moved by ``ulps`` float32 steps (toward +inf when positive)."""
     t = torch.tensor(x, dtype=torch.float32)
@@ -454,15 +561,16 @@ def _f32_step(x: float, ulps: int) -> float:
     return float(t)
 
 
-def _edge_state(model, ulps, outside, device):
+def _edge_state(model, ulps, outside, device, scale=1.0):
     """A state built to sit on the culling boundary. Every own cell of
     color 0 at even block indices holds one slot, on the face, edge or
     corner of its cell that faces one of the 26 neighbor directions
     (``outside`` float32 ulps beyond the cell on the axes it faces, as a
     slot can sit after a grid shift); that neighbor holds one slot at
-    r_cut (the largest cutoff, 2.5) from it, moved ``ulps`` float32 ulps
-    along the direction. Unshifted potentials, so a term at r_cut is not 0.
-    Returns (cfg, pot, state, the [3, *bs] inward unit steps of color 0)."""
+    r_cut (the largest cutoff, 2.5) from it, or at r_cut / s for an NPT
+    box scale s, moved ``ulps`` float32 ulps along the direction.
+    Unshifted potentials, so a term at r_cut is not 0. Returns (cfg, pot,
+    state, the [3, *bs] inward unit steps of color 0)."""
     cfg = mt.SimConfig(dim=3, n_atoms=52, box_length=16 * 2.55,
                        cells_per_side=16, nmax=4, n_moves=1,
                        proposal="gaussian", step_size=0.12, beta=0.3)
@@ -486,7 +594,7 @@ def _edge_state(model, ulps, outside, device):
             else:
                 x.append(lb[a] + w / 2)
         norm = math.sqrt(sum(v * v for v in dvec))
-        y = [x[a] + 2.5 * dvec[a] / norm for a in range(3)]
+        y = [x[a] + 2.5 / scale * dvec[a] / norm for a in range(3)]
         y = [_f32_step(y[a], ulps * dvec[a]) if dvec[a] else y[a]
              for a in range(3)]
         occ[(0, *blk)] = 1
@@ -539,6 +647,42 @@ def test_energetic_kernels_at_the_cutoff_edge(cuda, model, ulps, outside):
               else cuda_substep.launch_mix_kernel)
     launch(cfg, pot, st.pos, st.occ, perm, 0, pick_u, disp, acc_u, de_map,
            acc_map)
+    torch.cuda.synchronize()
+    assert int(acc_map.sum()) == int(acc) == 26
+    assert torch.equal(st.pos[0].view(torch.int32), own.view(torch.int32))
+    gap = (de_map - rec["de_cell"]).abs()
+    assert bool((gap <= 1e-5 * rec["de_cell"].abs() + 1e-4).all())
+
+
+@pytest.mark.parametrize("model", ["lj", "ka"])
+@pytest.mark.parametrize("ulps,outside", [(u, o) for u in (-4, -1, 1, 4)
+                                          for o in (0, 2)])
+@pytest.mark.parametrize("scale", [0.985, 1.03])
+def test_energetic_npt_kernels_at_the_cutoff_edge(cuda, model, ulps, outside,
+                                                  scale):
+    """``test_energetic_kernels_at_the_cutoff_edge`` for the NPT forms:
+    frozen slots 1-4 float32 ulps in and out of the stored-frame cutoff
+    r_cut / s (s = 0.985 keeps s w = 2.51 above r_cut); the kernel, whose
+    reach is its own division by s^2, meets the plain version at s in the
+    per-cell dE (within 1e-5 relative + 1e-4) and the positions."""
+    cfg, pot, st, inward = _edge_state(model, ulps, outside, cuda, scale)
+    bs = cfg.block_shape
+    perm = torch.arange(8, dtype=torch.int32, device=cuda)
+    pick_u = torch.zeros((1, *bs), device=cuda)
+    disp = (0.01 * inward)[None].contiguous()
+    acc_u = torch.zeros((1, *bs), device=cuda)
+    s = torch.tensor(scale, device=cuda)
+    rec = {}
+    plain = (cuda_substep.color_substep if model == "lj"
+             else mixture.color_substep_mixture)
+    own, de, acc, _ = plain(cfg, pot, 0, st.pos, st.occ, pick_u, disp, acc_u,
+                            rec, scale=s)
+    de_map = torch.empty(bs, device=cuda)
+    acc_map = torch.empty(bs, dtype=torch.int32, device=cuda)
+    launch = (cuda_substep.launch_lj_kernel if model == "lj"
+              else cuda_substep.launch_mix_kernel)
+    launch(cfg, pot, st.pos, st.occ, perm, 0, pick_u, disp, acc_u, de_map,
+           acc_map, cuda_substep.scale_squared(s, torch.float32, cuda))
     torch.cuda.synchronize()
     assert int(acc_map.sum()) == int(acc) == 26
     assert torch.equal(st.pos[0].view(torch.int32), own.view(torch.int32))

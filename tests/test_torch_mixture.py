@@ -447,7 +447,7 @@ def test_kernel_library_dispatch():
             cuda_substep.kernel_library(c, pot)
     with pytest.raises(NotImplementedError, match="not ported"):
         mixture.color_substep_mixture(cfg, POT, 0, None, None, None, None,
-                                      None, scale=1.0)
+                                      None, field=object())
 
 
 def test_state_from_numpy_carries_species(dense_reference):
