@@ -53,6 +53,24 @@ and checks three paths, each through the user's entry point
   NPT sweep's time beside the NVT sweep's, the volume move's time and
   peak memory, and the float32 against the float64 energy change of the
   warm-up run's volume moves.
+* external fields (``mcjax_torch.ops.extfield``, FIELD): the field form of
+  each sub-step kernel against its plain version at 1M on the states
+  above, at frame origin 0 and near +-L/2 on every axis (2D walls alone
+  bit for bit as one launch of a sweep; the energetic forms, 2D walls with
+  gravity included, under the near-tie rule), and each field form with a
+  null field against its NVT kernel bit for bit; a 2D slit small run
+  through the kernels against the plain CPU path (positions, occupancies
+  and the frame origin bit for bit); then three paths at 1M through
+  ``mcjax_torch.bench.run_bench_field`` with mcjax's CLI flags: an lj3d
+  slit pore under gravity (30 + 30 sweeps), ka3d under per-species
+  gravity between walls with per-species contact diameters (10 + 10) and
+  a hard-disk slit under gravity (20 + 20), gated on every sub-step
+  launch being the field form, no particle in the walls, no overflow, N
+  (and A / B), ``validate_state``, the acceptance, the carried dE against
+  the float64 pair + field total difference (ANCHOR_REL) and a frame
+  origin that moved. It prints each field sweep's time beside the NVT
+  sweep's of this run, and each field form's kernel time beside its NVT
+  form's on the same input.
 
 Any failure raises and the script exits non-zero. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no
@@ -70,6 +88,7 @@ import re
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import torch
 
@@ -514,14 +533,16 @@ def reset(libs) -> None:
     for lib in libs.values():
         lib.launches = 0
         lib.npt_launches = 0
+        lib.field_launches = 0
 
 
 def expect_launches(libs, launches, substep_lib, per_sweep,
-                    total_sweeps, npt: bool = False) -> None:
+                    total_sweeps, npt: bool = False,
+                    field: bool = False) -> None:
     """The run launched its sub-step kernel ``per_sweep`` times a sweep
     (once for 2D disks, once per color for the energetic models), each
-    launch its NPT form if ``npt`` and its NVT form if not, the shift once
-    per sweep, and no other kernel."""
+    launch its NPT form if ``npt``, its field form if ``field`` and its
+    NVT form if neither, the shift once per sweep, and no other kernel."""
     want = {name: 0 for name in libs}
     want[substep_lib] = per_sweep * total_sweeps
     want["shift"] = total_sweeps
@@ -535,6 +556,13 @@ def expect_launches(libs, launches, substep_lib, per_sweep,
     if npt_launches != want_npt:
         raise AssertionError(f"NPT-form launches {npt_launches}, want "
                              f"{want_npt}")
+    field_launches = {name: lib.field_launches for name, lib in libs.items()}
+    want_field = {name: 0 for name in libs}
+    if field:
+        want_field[substep_lib] = want[substep_lib]
+    if field_launches != want_field:
+        raise AssertionError(f"field-form launches {field_launches}, want "
+                             f"{want_field}")
 
 
 def run_main_path(mt, bench, libs, n_moves: int, stats: torch.Tensor) -> dict:
@@ -977,6 +1005,555 @@ def run_npt_main_path(mt, bench, libs, workload: str, stats: torch.Tensor,
     return result
 
 
+# The field phases (``mcjax_torch.ops.extfield``): for each workload the
+# mcjax CLI flags of its field (``mcjax/cli.py:177-193``, built by
+# ``bench.field_from_args``; LO and HI from the box), its depth, and its
+# kernel row. lj3d: gravity 0.1 with walls 1.25 inside each face of z
+# (centers within L/2 - 1.75, a gap of 3.5 > r_cut across the seam: a slit
+# pore); ka3d: per-species gravity 0.1 / 0.05 with per-species contact
+# diameters 1.0 / 0.8; hard disks: walls 1.0 inside each face of y with
+# gravity 0.01, the energetic-over-hard-core form. The runs take the
+# bench's field capacities (``bench.DEFAULT_FIELD_NMAX``).
+FIELD = {
+    "lj3d": dict(flags=dict(gravity=0.1), walls=(1.25, "1.0"), sweeps=30,
+                 substep="substep_lj3d_field", lib="substep_lj"),
+    "ka3d": dict(flags=dict(species_gravity="0.1,0.05"),
+                 walls=(1.25, "1.0,0.8"), sweeps=10,
+                 substep="substep_ka3d_field", lib="substep_mix"),
+    "hard-disk": dict(flags=dict(gravity=0.01), walls=(1.0, "1.0"),
+                      sweeps=20, substep="substep_field",
+                      lib="substep_field"),
+}
+FIELD_SMALL = dict(n=4096, sweeps=5)
+
+
+def field_ops_per_move(cuda_substep, field, dim: int, resolved: bool,
+                       hard_core: bool) -> int:
+    """Operations of one move's field work in a field form, counted from
+    the terms the kernel gets (``cuda_substep.field_params``, evaluated by
+    csrc/field.cuh): the physical wrap of each axis a term reads (5: two
+    adds, two compares, a subtract) at the new position, and at the old
+    one too when the field has energy; two compares for each walls term;
+    each energetic term at both positions (4 an axis for a trap, 1 for a
+    linear field's product, none for g = 1, 2 more for a species
+    coupling, 1 to add each term after the first); the dE chain (2); and
+    for hard disks the Metropolis test the field adds (3: the product by
+    -beta, expf, the compare)."""
+    fp = cuda_substep.field_params(field, dim, resolved)
+    ops = 5 * bin(fp.axes).count("1") * (2 if fp.energetic else 1)
+    terms = 0
+    for t in fp.t[:fp.n]:
+        if t.kind == 2:                     # walls
+            ops += 2
+            continue
+        e = 4 * dim if t.kind == 0 else (0 if t.unit else 1)
+        ops += 2 * (e + (2 if t.species else 0) + (1 if terms else 0))
+        terms += 1
+    if terms:
+        ops += 2 + (3 if hard_core else 0)
+    return ops
+
+
+def path_field(bench, workload: str, cfg):
+    """The field of a workload's field path, as its mcjax CLI flags give
+    it."""
+    f = FIELD[workload]
+    inset, diam = f["walls"]
+    half = cfg.box_length / 2.0
+    args = dict(trap=None, gravity=None, species_gravity=None,
+                field_axis=None,
+                walls=f"{-half + inset!r},{half - inset!r},{diam}")
+    args.update(f["flags"])
+    return bench.field_from_args(SimpleNamespace(**args), cfg.dim,
+                                 workload == "ka3d")
+
+
+def field_origins(cfg) -> list[torch.Tensor]:
+    """The frame origins of the field checks: 0, and one near +-L/2 on
+    every axis (alternating signs), where the physical wrap flips."""
+    edge = cfg.box_length / 2.0 - 1e-3
+    return [torch.zeros(cfg.dim, device="cuda"),
+            torch.tensor([edge * (-1) ** a for a in range(cfg.dim)],
+                         dtype=torch.float32, device="cuda")]
+
+
+def walls_only(field):
+    """The slit walls of a composite field, alone."""
+    from mcjax_torch.models import fields
+    return fields.CompositeField(tuple(
+        f for f in field.fields if isinstance(f, fields.SlitWalls)))
+
+
+def check_field_disk_kernel(mt, bench, cuda_substep, cfg, pot, st) -> float:
+    """2D field form at 1M (the disks' NVT check state): walls alone as one
+    launch of a sweep's four sub-steps, bit for bit with four plain
+    sub-steps (positions and counts); the path's field (walls and gravity:
+    the energetic-over-hard-core form) as the path launches it, one launch
+    of the four sub-steps, each under the near-tie rule with its dE per
+    cell within DE_REL + DE_ABS (``held_against_plain_substeps``); each at
+    origin 0 and near +-L/2. A null field (no term) equals the NVT kernel
+    bit for bit.
+    Returns the largest absolute position difference outside near ties."""
+    from mcjax_torch.models import fields
+    rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(31))
+    field = path_field(bench, "hard-disk", cfg)
+    walls = walls_only(field)
+    err = 0.0
+    for origin in field_origins(cfg):
+        perm, _, _ = rnd.schedule(cfg, st.sweep)
+        draws = [rnd.substep(cfg, st.sweep, i, True)
+                 for i in range(cfg.n_colors)]
+        before = st.pos.clone()
+        want = st.pos.clone()
+        plain_counts = []
+        for i, (pick_u, disp, _) in enumerate(draws):
+            color = int(perm[i])
+            own, _, acc, prop = cuda_substep.color_substep(
+                cfg, pot, color, want, st.occ, pick_u, disp, field=walls,
+                origin=origin)
+            want[color] = own
+            plain_counts.append((int(acc), int(prop)))
+        work = before.clone()
+        _, k_acc, k_prop = cuda_substep.substeps(cfg, pot, work, st.occ,
+                                                 perm, draws, field=walls,
+                                                 origin=origin)
+        torch.cuda.synchronize()
+        k_counts = list(zip(k_acc.tolist(), k_prop.tolist()))
+        err = max(err, abs_err(work, want))
+        if not bitwise_equal(work, want) or k_counts != plain_counts:
+            raise AssertionError(f"substep field form, walls, origin "
+                                 f"{origin.tolist()} != plain")
+        print(f"substep field form, walls only, origin {origin.tolist()}, "
+              f"one launch of 4 sub-steps: bitwise equal to 4 plain "
+              f"sub-steps; accepted / proposed {k_counts}")
+        # the path's field as the path launches it: one launch of the
+        # sweep's four sub-steps, sub-step j reading acc_u[j] and writing
+        # de_map[j]. Each sub-step writes only its color, so its input is
+        # the start with the colors of the sub-steps before it taken from
+        # the launch's output; each is held against one plain sub-step on
+        # that input.
+        work = before.clone()
+        counts = torch.zeros((len(draws), 2), dtype=torch.int64,
+                             device="cuda")
+        de_map = torch.zeros((len(draws), *cfg.block_shape), device="cuda")
+        fk = cuda_substep.FieldKernel(
+            cuda_substep.field_params(field, cfg.dim, False), origin)
+        cuda_substep.launch_field_kernel(cfg, pot, work, st.occ, perm, 0,
+                                         draws, counts, de_map, fk)
+        torch.cuda.synchronize()
+        ties, e = held_against_plain_substeps(
+            cuda_substep, cfg, pot, st.occ, perm, draws, field, origin,
+            before, work, counts, de_map, "substep field form, walls + "
+            f"gravity, origin {origin.tolist()}")
+        err = max(err, e)
+        print(f"substep field form, walls + gravity, origin "
+              f"{origin.tolist()}, one launch of 4 sub-steps: equal to 4 "
+              f"plain sub-steps outside near ties ({ties} differing cells, "
+              "all near ties), dE per cell within DE_REL + DE_ABS")
+    perm, _, _ = rnd.schedule(cfg, st.sweep)
+    draws = [rnd.substep(cfg, st.sweep, i, False)
+             for i in range(cfg.n_colors)]
+    nvt, null = st.pos.clone(), st.pos.clone()
+    cuda_substep.substeps(cfg, pot, nvt, st.occ, perm, draws)
+    cuda_substep.substeps(cfg, pot, null, st.occ, perm, draws,
+                          field=fields.CompositeField(()))
+    torch.cuda.synchronize()
+    if not bitwise_equal(nvt, null):
+        raise AssertionError("substep field form, null field != NVT kernel")
+    print("substep field form, null field: bitwise equal to the NVT kernel")
+    return err
+
+
+def held_against_plain_substeps(cuda_substep, cfg, pot, occ, perm, draws,
+                                field, origin, before, after, counts,
+                                de_map, what: str) -> tuple[int, float]:
+    """A 2D field-form launch of sub-steps [0, n) that took ``before`` to
+    ``after`` (its counts [n, 2] and per-cell dE maps [n, H, W]), held
+    against the plain sub-steps: sub-step j's input is ``before`` with the
+    colors of sub-steps 0..j-1 taken from ``after``, and its color in
+    ``after`` must equal the plain sub-step's on that input outside near
+    ties, its proposed count always, its accepted count where no cell
+    differs, and every cell's dE where it does not differ within DE_REL
+    + DE_ABS. Returns (differing cells, largest position difference
+    outside them)."""
+    inp = before.clone()
+    ties, err = 0, 0.0
+    for j, draw in enumerate(draws):
+        color = int(perm[j])
+        rec = {}
+        own, _, acc, prop = cuda_substep.color_substep(
+            cfg, pot, color, inp, occ, *draw, rec, field=field,
+            origin=origin)
+        got = after[color]
+        differs = (got.view(torch.int32)
+                   != own.view(torch.int32)).any(0).any(0)
+        near = rec["margin"] <= NEAR_TIE
+        if bool((differs & ~near).any()) or int(counts[j, 1]) != int(prop):
+            raise AssertionError(f"{what}: sub-step {j} (color {color}) != "
+                                 "plain outside near ties")
+        if not bool(differs.any()) and int(counts[j, 0]) != int(acc):
+            raise AssertionError(f"{what}: sub-step {j} accepted "
+                                 f"{int(counts[j, 0])} vs {int(acc)}")
+        same = ~differs
+        want_de = rec["de_cell"][same]
+        if bool(((de_map[j][same] - want_de).abs()
+                 > DE_REL * want_de.abs() + DE_ABS).any()):
+            raise AssertionError(f"{what}: sub-step {j} dE per cell != "
+                                 "plain")
+        if bool(same.any()):
+            err = max(err, float((got - own).abs()[:, :, same].max()))
+        ties += int(differs.sum())
+        inp[color] = got
+    return ties, err
+
+
+def check_field_energetic_kernel(mt, bench, cuda_substep, workload, cfg, pot,
+                                 st) -> float:
+    """An energetic field form at 1M (the workload's NVT check state): all 8
+    colors under the path's field at origin 0 and near +-L/2 against the
+    plain version, under the near-tie rule; one color with a null field
+    against the NVT kernel bit for bit (positions and both maps). Returns
+    the largest per-cell dE difference outside near ties."""
+    from mcjax_torch.models import fields
+    w = ENERGETIC[workload]
+    launch = getattr(cuda_substep, w["launch"])
+    plain = plain_substep(cuda_substep, pot)
+    field = path_field(bench, workload, cfg)
+    rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(w["seed"] + 30))
+    bs = cfg.block_shape
+    worst = 0.0
+    for origin in field_origins(cfg):
+        perm, _, _ = rnd.schedule(cfg, st.sweep)
+        n_diff = n_ties = 0
+        for i in range(cfg.n_colors):
+            draws = rnd.substep(cfg, st.sweep, i, True)
+            color = int(perm[i])
+            before = st.pos.clone()
+            rec = {}
+            own, de, acc, prop = plain(cfg, pot, color, before, st.occ,
+                                       *draws, rec, field=field,
+                                       origin=origin)
+            de_map = torch.empty(bs, dtype=torch.float32, device="cuda")
+            acc_map = torch.empty(bs, dtype=torch.int32, device="cuda")
+            launch(cfg, pot, st.pos, st.occ, perm, i, *draws, de_map,
+                   acc_map, None, cuda_substep.FieldKernel(
+                       cuda_substep.field_params(field, cfg.dim,
+                                                 workload == "ka3d"), origin))
+            torch.cuda.synchronize()
+            differs = (st.pos[color].view(torch.int32)
+                       != own.view(torch.int32)).any(0).any(0)
+            near = rec["margin"] <= NEAR_TIE
+            if bool((differs & ~near).any()):
+                raise AssertionError(f"{workload} substep field form != plain"
+                                     f" outside near ties, color {color}")
+            k_de, k_acc = float(de_map.double().sum()), int(acc_map.sum())
+            if not bool(differs.any()) and (
+                    k_acc != int(acc)
+                    or abs(k_de - float(de)) > DE_REL * abs(float(de)) + DE_ABS):
+                raise AssertionError(f"{workload} substep field form, color "
+                                     f"{color}: accepted {k_acc} vs "
+                                     f"{int(acc)}, dE {k_de} vs {float(de)}")
+            worst = max(worst, float(
+                (de_map - rec["de_cell"]).abs()[~differs].max()))
+            n_diff += int(differs.sum())
+            n_ties += int(near.sum())
+        print(f"{workload} substep field form, origin {origin.tolist()}, 8 "
+              f"colors at N = 1,000,000: {n_diff} differing cells, all near "
+              f"ties; near-tie cells {n_ties}")
+    perm, _, _ = rnd.schedule(cfg, st.sweep)
+    draws = rnd.substep(cfg, st.sweep, 0, True)
+    maps = [torch.empty(bs, dtype=t, device="cuda")
+            for t in (torch.float32, torch.int32) * 2]
+    nvt, null = st.pos.clone(), st.pos.clone()
+    launch(cfg, pot, nvt, st.occ, perm, 0, *draws, *maps[:2])
+    launch(cfg, pot, null, st.occ, perm, 0, *draws, *maps[2:], None,
+           cuda_substep.FieldKernel(cuda_substep.field_params(
+               fields.CompositeField(()), cfg.dim, workload == "ka3d"),
+               torch.zeros(cfg.dim, device="cuda")))
+    torch.cuda.synchronize()
+    if not (bitwise_equal(nvt, null) and bitwise_equal(maps[0], maps[2])
+            and torch.equal(maps[1], maps[3])):
+        raise AssertionError(f"{workload} substep field form, null field != "
+                             "NVT kernel")
+    print(f"{workload} substep field form: null field bitwise equal to the "
+          f"NVT kernel; largest dE difference per cell {worst:.3e}")
+    return worst
+
+
+def check_field_small_run_against_cpu(mt, bench) -> None:
+    """2D slit: a small run under the hard-disk path's field (walls and
+    gravity, the energetic-over-hard-core form, one launch a sweep) equals
+    the plain CPU path fed the same random numbers: positions,
+    occupancies, the frame origin and the counts bit for bit, each sweep's
+    dE within DE_REL + DE_ABS (summed in another order), and no particle
+    in the walls. A decision within an ulp of a tie (expf against torch's
+    exp) would break the bitwise gate; some 1e5 exp tests a run, each
+    within an ulp with a chance of about 1e-8, make one unlikely."""
+    from mcjax_torch.ops import extfield
+    n, sweeps = FIELD_SMALL["n"], FIELD_SMALL["sweeps"]
+    cfg, pot, st = bench.build(n, 0.5, 2.0, 7, 16, device="cuda")
+    field = path_field(bench, "hard-disk", cfg)
+    st = bench.slab_start(cfg, field, st, False)
+    cpu = mt.state_from_numpy(*mt.state_to_numpy(st), device="cpu")
+    rec = Recorder(mt.TorchRandoms(torch.Generator("cuda").manual_seed(32)))
+    g_st, g_org, g_m = extfield.run_field_sweeps(
+        cfg, pot, field, st, torch.zeros(2, device="cuda"), sweeps, rec)
+    c_st, c_org, c_m = extfield.run_field_sweeps(
+        cfg, pot, field, cpu, torch.zeros(2), sweeps, Replay(rec.log))
+    for name, a, b in (("pos", g_st.pos, c_st.pos), ("occ", g_st.occ, c_st.occ),
+                       ("origin", g_org, c_org),
+                       ("accepted", g_m.accepted, c_m.accepted),
+                       ("proposed", g_m.proposed, c_m.proposed)):
+        if not bitwise_equal(a.cpu(), b):
+            raise AssertionError(f"field small run: GPU {name} != CPU {name}")
+    g_de, c_de = g_m.delta_e.cpu().double(), c_m.delta_e.double()
+    if bool(((g_de - c_de).abs() > DE_REL * c_de.abs() + DE_ABS).any()):
+        raise AssertionError(f"field small run: dE per sweep {g_de.tolist()}"
+                             f" != CPU {c_de.tolist()}")
+    bad = int(extfield.field_violations(cfg, field, g_st.pos, g_st.occ,
+                                        g_org))
+    if bad:
+        raise AssertionError(f"field small run: {bad} particles in the walls")
+    print(f"field small run (2D slit under walls and gravity, N={n}, "
+          f"{sweeps} sweeps): GPU kernels == CPU plain path (pos, occ, "
+          f"origin {g_org.tolist()}, counts; dE per sweep {g_de.tolist()})")
+
+
+def field_substep_bound_ms(cfg, st, inputs, cells, field_energy: bool,
+                           field_ops: int) -> tuple[float, str]:
+    """2D field form: ``substep_bound_ms``'s bytes, with the acceptance
+    uniforms and the per-cell dE maps when the field has energy, and its
+    operations plus ``field_ops``, the field's over the sub-steps."""
+    _, perm, draws = inputs
+    colors = [int(c) for c in perm[:len(draws)]]
+    occ = st.occ
+    live = int(occ.sum())
+    own_live = sum(int(occ[c].sum()) for c in colors)
+    nbytes = (4 * cfg.dim * live + occ.numel() * 4
+              + sum(4 * (p.numel() + d.numel()) for p, d, _ in draws)
+              + 4 * cfg.dim * own_live + 16 * len(draws))
+    if field_energy:
+        nbytes += sum(4 * a.numel() for _, _, a in draws) \
+            + 4 * cfg.cells_per_color * len(draws)
+    ops = 0
+    for color in colors:
+        _, nbr_occ = cells.neighbor_stack(cfg, st.pos, occ, color)
+        own = occ[color].long()
+        tests = torch.where(own > 0, (own - 1) + nbr_occ.long().sum(0), 0)
+        ops += OPS_PER_PAIR_TEST * cfg.n_moves * int(tests.sum())
+    return bound(nbytes, ops + field_ops)
+
+
+def time_field_disk(mt, bench, cuda_substep, cells, cfg, pot, st, inputs
+                    ) -> tuple[dict, dict]:
+    """The 2D field form's kernel and plain-version times on the NVT row's
+    input under the path's field (origin near +-L/2), beside the NVT form
+    timed again the same way, and its bound; prints its launch shape."""
+    times, bounds = {}, {}
+    before, perm, draws = inputs["substep"]
+    rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(33))
+    fdraws = [(p, d, rnd.substep(cfg, 0, i, True)[2])
+              for i, (p, d, _) in enumerate(draws)]
+    field = path_field(bench, "hard-disk", cfg)
+    origin = field_origins(cfg)[1]
+    fk = cuda_substep.FieldKernel(cuda_substep.field_params(field, 2, False),
+                                  origin)
+    shape = cuda_substep.kernel_shape(cuda_substep.LIB, cfg.nmax,
+                                      cfg.cells_per_color, field=True)
+    print(f"substep_field shape at nmax {cfg.nmax}: {shape['registers']} "
+          f"registers, {shape['local_bytes']} bytes local, shared memory "
+          f"{shape['static_smem']} static + {shape['dynamic_smem']} dynamic "
+          f"bytes a block, {shape['warps_per_sm']} resident warps an SM; "
+          f"cooperative grid {shape['grid_blocks']} blocks")
+    work = before.clone()
+    counts = torch.zeros((len(draws), 2), dtype=torch.int64, device="cuda")
+    de_map = torch.zeros((len(draws), *cfg.block_shape), device="cuda")
+    times["substep_field"] = cuda_ms(lambda: cuda_substep.launch_field_kernel(
+        cfg, pot, work, st.occ, perm, 0, fdraws, counts, de_map, fk),
+        TIMED_LAUNCHES)
+    work.copy_(before)
+    times["substep_field_nvt"] = cuda_ms(lambda: cuda_substep.launch_kernel(
+        cfg, pot, work, st.occ, perm, 0, [d[0] for d in draws],
+        [d[1] for d in draws], counts), TIMED_LAUNCHES)
+
+    def plain_sweep():
+        pos = before.clone()
+        for j, draw in enumerate(fdraws):
+            c = int(perm[j])
+            pos[c] = cuda_substep.color_substep(cfg, pot, c, pos, st.occ,
+                                                *draw, field=field,
+                                                origin=origin)[0]
+    times["substep_field_plain"] = cuda_ms(plain_sweep, PLAIN_RUNS)
+    # the field's operations: field_ops_per_move for each move that stays
+    # in its cell and out of the walls, as the plain sub-steps count them
+    pos, moves = before.clone(), 0
+    for j, draw in enumerate(fdraws):
+        c, rec = int(perm[j]), {}
+        pos[c] = cuda_substep.color_substep(cfg, pot, c, pos, st.occ, *draw,
+                                            rec, field=field,
+                                            origin=origin)[0]
+        moves += int(rec["in_cell"].sum())
+    bounds["substep_field"] = field_substep_bound_ms(
+        cfg, st, (before, perm, fdraws), cells, True,
+        moves * field_ops_per_move(cuda_substep, field, 2, False, True))
+    return times, bounds
+
+
+def time_field_energetic(mt, bench, cuda_substep, cells, workload, cfg, pot,
+                         st, inputs) -> tuple[dict, dict]:
+    """An energetic field form's kernel and plain-version times on its NVT
+    row's input (``time_energetic``'s) under the path's field (origin near
+    +-L/2), beside the NVT form timed again the same way, and its bound:
+    the NVT form's pair terms on this input plus field_ops_per_move for
+    each move that stays in its cell and out of the walls; prints its
+    launch shape."""
+    w, fw = ENERGETIC[workload], FIELD[workload]
+    sub = fw["substep"]
+    before, perm, i, draws, _ = inputs["substep"]
+    field = path_field(bench, workload, cfg)
+    origin = field_origins(cfg)[1]
+    fk = cuda_substep.FieldKernel(cuda_substep.field_params(
+        field, 3, workload == "ka3d"), origin)
+    shape = cuda_substep.kernel_shape(cuda_substep.kernel_library(cfg, pot),
+                                      cfg.nmax, field=True)
+    print(f"{sub} shape at nmax {cfg.nmax}: {shape['registers']} "
+          f"registers, {shape['local_bytes']} bytes local, shared memory"
+          f" {shape['static_smem']} static + {shape['dynamic_smem']} "
+          f"dynamic bytes a block, {shape['warps_per_sm']} resident "
+          f"warps an SM, {shape['staged_capacity']} staged slots a warp")
+    launch = getattr(cuda_substep, w["launch"])
+    plain = plain_substep(cuda_substep, pot)
+    work = before.clone()
+    maps = (torch.empty(cfg.block_shape, device="cuda"),
+            torch.empty(cfg.block_shape, dtype=torch.int32, device="cuda"))
+    color = int(perm[i])
+    times = {
+        sub: cuda_ms(lambda: launch(cfg, pot, work, st.occ, perm, i, *draws,
+                                    *maps, None, fk), TIMED_LAUNCHES)}
+    work.copy_(before)
+    times[sub + "_nvt"] = cuda_ms(lambda: launch(
+        cfg, pot, work, st.occ, perm, i, *draws, *maps), TIMED_LAUNCHES)
+    rec = {}
+    plain(cfg, pot, color, before, st.occ, *draws, rec, field=field,
+          origin=origin)
+    times[sub + "_plain"] = cuda_ms(lambda: plain(
+        cfg, pot, color, before, st.occ, *draws, field=field, origin=origin),
+        PLAIN_RUNS)
+    ops = OPS_PER_MIX_TERM if workload == "ka3d" else OPS_PER_LJ_TERM
+    b_ms, by = energetic_substep_bound_ms(cfg, st, (before, perm, i, draws,
+                                                    rec), cells, ops)
+    field_ms = 1e3 * int(rec["in_cell"].sum()) * field_ops_per_move(
+        cuda_substep, field, 3, workload == "ka3d", False) \
+        / PEAK_F32_OPS_PER_S
+    return times, {sub: (b_ms + field_ms if by == "operations" else b_ms,
+                         by)}
+
+
+def replay_field_run(mt, bench, workload: str, cfg, pot, field,
+                     sweeps: int, seed: int = 0):
+    """A ``bench.run_bench_field`` run of ``sweeps`` sweeps in all (warm-up
+    and timed), replayed from its start with its seed through
+    ``extfield.field_sweep`` itself: ``TorchRandoms`` draws in call order
+    and the kernels are deterministic, so the same calls give the same
+    trajectory. Between sweeps it measures in float64 how much each grid
+    shift changes the field's total: the shift rounds the stored float32
+    coordinates and the float32 frame origin (the JAX package's frame),
+    alike for every particle of a binade, which moves them against the
+    field. A sweep's sub-steps update the state's positions in place and
+    its shift writes new buffers, so after a shifting sweep the old
+    state's positions are the ones the shift read. Returns (final state,
+    final origin, summed shift changes)."""
+    from mcjax_torch.ops import extfield
+
+    def total(st, origin):
+        return extfield.total_field_energy_cells(cfg, field, st.pos, st.occ,
+                                                 origin, torch.float64)
+
+    _, _, st, _ = bench.build_workload(workload, nmax=cfg.nmax,
+                                       device="cuda")
+    st = bench.slab_start(cfg, field, st, workload == "ka3d")
+    rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(seed))
+    origin = torch.zeros(cfg.dim, device="cuda")
+    jumps = 0.0
+    for _ in range(sweeps):
+        shift = (st.sweep + 1) % cfg.shift_every == 0
+        new, new_origin, _ = extfield.field_sweep(cfg, pot, field, st,
+                                                  origin, rnd)
+        if shift:
+            jumps += float(total(new, new_origin) - total(st, origin))
+        st, origin = new, new_origin
+    return st, origin, jumps
+
+
+def run_field_main_path(mt, bench, libs, workload: str, cfg_path,
+                        stats: torch.Tensor, nvt: dict) -> dict:
+    """A field path through the user's entry point
+    (``bench.run_bench_field``, the flags of FIELD): launch counts over
+    exactly this run (every sub-step launch the field form), the
+    invariants (no particle in the walls, for ka3d the A and B
+    populations), the acceptance, the carried dE against the float64
+    pair + field total difference, and a frame origin that moved. The
+    energy gate counts the field energy the grid shifts themselves change
+    (``replay_field_run``, whose final state must equal the run's bit for
+    bit), as the CPU tests' anchors count the shifts' jumps; the gap
+    without them is printed beside it.
+    ``cfg_path`` is the workload's configuration at its defaults (the
+    walls sit at its box)."""
+    w = FIELD[workload]
+    field = path_field(bench, workload, cfg_path)
+    reset(libs)
+    stats.zero_()
+    result, cfg, pot, st, origin, warm, m = bench.run_bench_field(
+        workload, field, sweeps=w["sweeps"])
+    torch.cuda.synchronize()
+    print(json.dumps(result))
+    launches = {name: lib.launches for name, lib in libs.items()}
+    field_launches = libs[w["lib"]].field_launches
+    total_sweeps = 2 * w["sweeps"]
+    per_sweep = 1 if workload == "hard-disk" else cfg.n_colors
+    expect_launches(libs, launches, w["lib"], per_sweep, total_sweeps,
+                    field=True)
+    check_result(mt, cfg, pot, st, result)
+    species = ENERGETIC.get(workload, {}).get("species")
+    result.update(mt.validate_state(cfg, st, pot, expect_species=species))
+    if species is not None and [result["n_a"], result["n_b"]] != species:
+        raise AssertionError(f"{workload} field: A, B = {result['n_a']}, "
+                             f"{result['n_b']}, want {species}")
+    if result["field_violations"]:
+        raise AssertionError(f"{workload} field: {result['field_violations']}"
+                             " particles in the walls")
+    e0 = result["pair_energy_start"] + result["field_energy_start"]
+    e1 = result["energy_f64"]
+    de = result["carried_energy"] - e0
+    r_st, r_org, jumps = replay_field_run(mt, bench, workload, cfg, pot,
+                                          field, total_sweeps)
+    if not (bitwise_equal(r_st.pos, st.pos) and torch.equal(r_st.occ, st.occ)
+            and bitwise_equal(r_org, origin)):
+        raise AssertionError(f"{workload} field: the replay's state differs "
+                             "from the run's")
+    gap = abs((e1 - e0) - (de + jumps))
+    gap_moves = abs((e1 - e0) - de)
+    result.update(shift_field_jumps=jumps, anchor_gap=gap,
+                  anchor_rel_gap_moves_only=gap_moves / max(1.0,
+                                                            abs(e1 - e0)))
+    if gap > ANCHOR_REL * max(1.0, abs(e1 - e0)):
+        raise AssertionError(f"{workload} field: E {e0} -> {e1} "
+                             f"(difference {e1 - e0}), summed dE {de}, the "
+                             f"shifts' field changes {jumps}")
+    if not any(abs(o) > 0 for o in result["origin"]):
+        raise AssertionError(f"{workload} field: the frame origin never "
+                             "moved")
+    result.update(launches=launches, anchor_rel_gap=gap / max(1.0, abs(e1 - e0)),
+                  summed_de=de, overflow_cells=int(stats[0]),
+                  field_launches=field_launches,
+                  nvt_ms_per_sweep=nvt["ms_per_sweep"])
+    print(json.dumps({k: result[k] for k in (
+        "launches", "anchor_rel_gap", "anchor_rel_gap_moves_only",
+        "summed_de", "shift_field_jumps", "overflow_cells",
+        "field_launches")}))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -993,10 +1570,15 @@ def main() -> int:
                           timeout=60).stdout.strip().splitlines()[-1]
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc: {nvcc}")
 
-    libs = {"substep": cuda_substep.LIB, "substep_lj": cuda_substep.LIB_LJ,
+    libs = {"substep": cuda_substep.LIB,
+            "substep_field": cuda_substep.LIB_FIELD,
+            "substep_lj": cuda_substep.LIB_LJ,
             "substep_mix": cuda_substep.LIB_MIX, "shift": cuda_shift.LIB}
     build_s = _build.build_all(list(libs.values()))
-    print(f"kernels built in {build_s:.1f} s")
+    each = ", ".join(f"{name} {lib.build_seconds:.1f} s"
+                     for name, lib in libs.items()
+                     if lib.build_seconds is not None)
+    print(f"kernels built in {build_s:.1f} s ({each})")
     for name, lib in libs.items():
         lib.load()
         entry = name
@@ -1016,8 +1598,15 @@ def main() -> int:
     err["substep_npt"] = check_npt_disk_kernel(
         mt, cuda_substep, cfg, pot, dataclasses.replace(st, pos=st.pos.clone()))
     check_npt_small_run_against_cpu(mt)
+    # the 2D field form likewise, and a walled small run
+    err["substep_field"] = check_field_disk_kernel(
+        mt, bench, cuda_substep, cfg, pot,
+        dataclasses.replace(st, pos=st.pos.clone()))
+    check_field_small_run_against_cpu(mt, bench)
     # 3D Lennard-Jones and the Kob-Andersen mixture
     energetic = {}
+    field_timing = {}
+    path_cfgs = {"hard-disk": cfg}
     for workload in ENERGETIC:
         ecfg, epot, est, eerr, einputs = check_energetic_against_plain(
             mt, cuda_substep, cuda_shift, workload)
@@ -1030,6 +1619,13 @@ def main() -> int:
         energetic[workload] = time_energetic(mt, cuda_substep, cuda_shift,
                                              cells, workload, ecfg, epot,
                                              est, einputs)
+        err[FIELD[workload]["substep"]] = check_field_energetic_kernel(
+            mt, bench, cuda_substep, workload, ecfg, epot,
+            dataclasses.replace(est, pos=est.pos.clone()))
+        field_timing[workload] = time_field_energetic(
+            mt, bench, cuda_substep, cells, workload, ecfg, epot, est,
+            einputs)
+        path_cfgs[workload] = ecfg
         del est, einputs
 
     # Kernel and plain-version times at the main-path shapes. Kernels
@@ -1093,6 +1689,8 @@ def main() -> int:
     rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(3))
     rng_ms = cuda_ms(lambda: rnd.substep(cfg, 0, 0, False), TIMED_LAUNCHES)
     sched_ms = cuda_ms(lambda: rnd.schedule(cfg, 0), TIMED_LAUNCHES)
+    field_timing["hard-disk"] = time_field_disk(mt, bench, cuda_substep,
+                                                cells, cfg, pot, st, inputs)
 
     reset(libs)
 
@@ -1105,6 +1703,9 @@ def main() -> int:
     for e_times, e_bounds, _ in energetic.values():
         times.update(e_times)
         bounds.update(e_bounds)
+    for f_times, f_bounds in field_timing.values():
+        times.update(f_times)
+        bounds.update(f_bounds)
 
     stats = cuda_substep.kernel_stats("cuda")
     main64 = run_main_path(mt, bench, libs, 64, stats)
@@ -1116,6 +1717,11 @@ def main() -> int:
     npt_paths = {workload: run_npt_main_path(
         mt, bench, libs, workload, cuda_substep.kernel_stats("cuda"),
         paths[workload]) for workload in NPT}
+    field_paths = {workload: run_field_main_path(
+        mt, bench, libs, workload, path_cfgs[workload],
+        cuda_substep.kernel_stats("cuda"),
+        main64 if workload == "hard-disk" else paths[workload])
+        for workload in FIELD}
     for res in (main64, main8):
         print(f"hard disks, n_moves {res['n_moves']}: {res['value']:.6e} "
               f"moves/s, {res['ms_per_sweep']:.6f} ms/sweep ({smi}); "
@@ -1165,6 +1771,25 @@ def main() -> int:
               f"{res['du_fresh_f32_minus_f64_max']:.6f}; one-ring refusals "
               f"{res['one_ring_refusals']}; {res['overflow_cells']} of "
               f"{res['cell_launches']} cell sub-steps took the overflow pass")
+    for workload, res in field_paths.items():
+        print(f"{workload} field ({res['metric']}), n_moves "
+              f"{res['n_moves']}: {res['value']:.6e} moves/s, "
+              f"{res['ms_per_sweep']:.6f} ms per field sweep against "
+              f"{res['nvt_ms_per_sweep']:.6f} ms per NVT sweep; acceptance "
+              f"{res['acceptance']:.6f}; slab density "
+              f"{res['slab_density']:.6f}; pair energy {res['pair_energy']:.3f}"
+              f", field energy {res['field_energy']:.3f} (start "
+              f"{res['pair_energy_start']:.3f}, "
+              f"{res['field_energy_start']:.3f}); carried dE gap "
+              f"{res['anchor_rel_gap']:.3e} with the shifts' field changes "
+              f"({res['shift_field_jumps']:.6f}), "
+              f"{res['anchor_rel_gap_moves_only']:.3e} without; origin "
+              f"{res['origin']}; "
+              f"{res['overflow_cells']} overflow-pass cells ({smi})")
+    for workload, fw in FIELD.items():
+        sub = fw["substep"]
+        print(f"{sub}: {times[sub]:.6f} ms against its NVT form "
+              f"{times[sub + '_nvt']:.6f} ms on the same input ({smi})")
     for name, (b, by) in bounds.items():
         print(f"{name}: kernel {times[name]:.6f} ms, bound {b:.6f} ms ({by}),"
               f" plain {times[name + '_plain']:.3f} ms")
@@ -1174,7 +1799,10 @@ def main() -> int:
                "shift3d": "shift.cu", "shift_ka3d": "shift.cu",
                "substep_npt": "substep.cu",
                "substep_lj3d_npt": "substep_lj.cu",
-               "substep_ka3d_npt": "substep_mix.cu"}
+               "substep_ka3d_npt": "substep_mix.cu",
+               "substep_field": "substep_field.cu",
+               "substep_lj3d_field": "substep_lj.cu",
+               "substep_ka3d_field": "substep_mix.cu"}
     replaces = {
         "substep": "mcjax/ops/pallas_ring.py:919, mcjax/ops/pallas_ring.py:495",
         "substep_lj3d": "mcjax/ops/pallas_sweep.py:1348, "
@@ -1192,6 +1820,11 @@ def main() -> int:
                             "mcjax/ops/pallas_ring.py:495",
         "substep_ka3d_npt": "mcjax/ops/pallas_sweep.py:1348, "
                             "mcjax/ops/pallas_sweep.py:878",
+        "substep_field": "mcjax/ops/pallas_sweep.py:878",
+        "substep_lj3d_field": "mcjax/ops/pallas_sweep.py:1348, "
+                              "mcjax/ops/pallas_sweep.py:878",
+        "substep_ka3d_field": "mcjax/ops/pallas_sweep.py:1348, "
+                              "mcjax/ops/pallas_sweep.py:878",
     }
     launches = {"substep": main64["launches"]["substep"],
                 "shift": main64["launches"]["shift"]}
@@ -1205,6 +1838,8 @@ def main() -> int:
     for workload, res in npt_paths.items():
         w = ENERGETIC[workload]
         launches[w["substep"] + "_npt"] = res["launches"][w["lib"]]
+    for workload, res in field_paths.items():
+        launches[FIELD[workload]["substep"]] = res["field_launches"]
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"mcjax_torch/csrc/{sources[name]}",

@@ -3,7 +3,9 @@
 Checkerboard-decomposed, cell-list Metropolis Monte Carlo on color-blocked
 slabs, with the JAX package's state layout: 2D hard disks, 3D Lennard-Jones
 and 3D binary Lennard-Jones mixtures (Kob-Andersen) so far, in the NVT
-ensemble and in the NPT one (ln-V volume moves, ``run_npt``). Each color
+ensemble and in the NPT one (ln-V volume moves, ``run_npt``), and under
+external one-body fields (traps, gravity, slit walls:
+``mcjax_torch.models.fields``, ``mcjax_torch.ops.extfield``). Each color
 sub-step and each grid shift runs as a hand-written CUDA kernel on the
 card; on the CPU the same entry points run plain PyTorch versions that
 match the JAX package (bit for bit for hard disks; for the energetic models

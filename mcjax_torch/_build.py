@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled on first use into
 ``build/mcjax_torch/lib<name>-<digest>.so`` (next to the package; ``build/``
-is git-ignored), where the digest covers the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded. The libraries
+is git-ignored), where the digest covers the source, the headers of
+``csrc/`` it may include and the flags, so an edited source or header is
+rebuilt and a stale library is never loaded. The libraries
 have a plain C interface: every pointer and the stream are passed as
 ``c_void_p`` and each entry returns ``cudaGetLastError()`` after its launch.
 Nothing is built or loaded at import time.
@@ -17,6 +18,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -45,9 +47,9 @@ class CudaLibrary:
 
     ``signatures`` maps each C entry point to its ctypes argument types.
     ``launches`` is a plain int that ``launch`` adds one to for every kernel
-    launch, and ``npt_launches`` one for every launch of a kernel's NPT
-    form among them; callers reset both to 0 to count the launches of one
-    run.
+    launch, ``npt_launches`` one for every launch of a kernel's NPT form
+    among them and ``field_launches`` one for every launch of its field
+    form; callers reset all three to 0 to count the launches of one run.
     """
 
     def __init__(self, name: str, signatures: dict[str, list]):
@@ -55,7 +57,9 @@ class CudaLibrary:
         self.signatures = signatures
         self.launches = 0
         self.npt_launches = 0
+        self.field_launches = 0
         self.build_log = ""
+        self.build_seconds: float | None = None
         self._lib: ctypes.CDLL | None = None
 
     @property
@@ -65,6 +69,8 @@ class CudaLibrary:
     @property
     def path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
@@ -96,22 +102,34 @@ class CudaLibrary:
             self._lib = lib
         return self._lib
 
-    def launch(self, fn: str, *args, npt: bool = False) -> None:
-        """Call entry ``fn`` (which launches a kernel's NPT form if ``npt``);
-        raise if the launch reported a CUDA error."""
+    def launch(self, fn: str, *args, npt: bool = False,
+               field: bool = False) -> None:
+        """Call entry ``fn`` (which launches a kernel's NPT form if ``npt``,
+        its field form if ``field``); raise if the launch reported a CUDA
+        error."""
         err = getattr(self.load(), fn)(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {err}")
         self.launches += 1
         self.npt_launches += npt
+        self.field_launches += field
 
 
 def build_all(libs: list[CudaLibrary]) -> float:
     """Build every library not built yet, one nvcc per source, all started
-    together. Returns the wall time in seconds."""
+    together; each one's output is read as it comes, and its wall time from
+    the common start is left in its ``build_seconds``. Returns the wall
+    time in seconds."""
     t0 = time.perf_counter()
     started = [(lib, job) for lib in libs
                if (job := lib.start_build()) is not None]
-    for lib, (proc, tmp) in started:
+
+    def finish(item) -> None:
+        lib, (proc, tmp) = item
         lib.finish_build(proc, tmp)
+        lib.build_seconds = time.perf_counter() - t0
+
+    if started:
+        with ThreadPoolExecutor(len(started)) as pool:
+            list(pool.map(finish, started))
     return time.perf_counter() - t0

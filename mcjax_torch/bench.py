@@ -22,6 +22,17 @@ With ``--pressure P`` the workload runs in the NPT ensemble
 ``--dlnv-max`` and ``--volume-every``): an ln-V volume move after every
 ``--volume-every``-th sweep, of half-width ``--dlnv-max``, at pressure P.
 
+With a field flag the workload runs under an external one-body field
+(``mcjax_torch.ops.extfield``), with mcjax's flags and meaning
+(``mcjax/cli.py``): ``--trap K[,KY,...]`` a harmonic trap at the origin,
+``--gravity G`` g x along ``--field-axis`` (default: the last axis),
+``--species-gravity G0,G1`` per-species gravity (mixtures), ``--walls
+LO,HI[,DIAM...]`` hard slit walls on that axis (one contact diameter, or
+one a species). A walled run starts from the workload's own start with its
+wall-axis coordinate scaled about 0 into the open slab. The sub-steps run
+the kernels' field forms; the frame origin moves on the device with the
+grid shift.
+
 Timing uses CUDA events around a timed run of ``--sweeps`` sweeps that
 follows a warm-up run of the same length.
 
@@ -30,13 +41,20 @@ follows a warm-up run of the same length.
                                 [--moves M] [--sweeps S] [--seed 0]
                                 [--pressure P [--dlnv-max 0.02]
                                  [--volume-every 1]]
+                                [--trap K] [--gravity G]
+                                [--species-gravity G0,G1]
+                                [--walls LO,HI[,DIAM...]] [--field-axis A]
 
 Prints ONE JSON line: metric, value, unit, vs_baseline (against the
 reference's 2.25e4 trial moves/s, BASELINE.md), plus ms per sweep,
 overflow, acceptance and the device name; ka3d adds the A and B counts
 after the run. An NPT run adds the volume moves' acceptance over both
 runs, the final volume, scale and density, and the carried energy against
-the float64 cell total at the final scale.
+the float64 cell total at the final scale. A field run adds the pair and
+field energies after the run (float64), the density of the slab between
+the walls, the frame origin, and the carried energy (the start's float64
+pair + field total plus every summed dE) against the float64 pair + field
+total after the run.
 """
 
 from __future__ import annotations
@@ -50,9 +68,12 @@ import torch
 from mcjax_torch.core.config import SimConfig
 from mcjax_torch.core.device import resolve_device
 from mcjax_torch.core.state import SimState, init_state
+from mcjax_torch.models import fields
 from mcjax_torch.models.mixtures import LJMixture, kob_andersen
 from mcjax_torch.models.potentials import HardSphere, LennardJones, Potential
 from mcjax_torch.ops import cells
+from mcjax_torch.ops.extfield import (field_violations, run_field_sweeps,
+                                      total_field_energy_cells)
 from mcjax_torch.ops.mixture import init_mixture_state, species_counts
 from mcjax_torch.ops.npt import (NPTMetrics, NPTState, VolumeHook, init_npt,
                                  run_npt)
@@ -308,6 +329,13 @@ def build_workload(workload: str, n_atoms: int | None = None,
 
 
 DEFAULT_SWEEPS = {"hard-disk": 100, "lj3d": 30, "ka3d": 100}
+# Cell capacity of a field run: slit walls hold the same N in less volume
+# (3.3 % less at lj3d's box with walls 1.25 inside each face, 3.7 % at
+# ka3d's), the start is the lattice compressed along the wall axis (cells
+# of 3 and 4 of its layers) and the fluid layers at the walls, so the 3D
+# cells hold more than in the bulk: a walled run of 12^3 cells of the
+# bulk's width reached 21 (lj3d) and 33 (ka3d) a cell.
+DEFAULT_FIELD_NMAX = {"hard-disk": 7, "lj3d": 28, "ka3d": 40}
 
 
 def run_bench_npt(workload: str, pressure: float, dlnv_max: float = 0.02,
@@ -332,6 +360,147 @@ def run_bench_npt(workload: str, pressure: float, dlnv_max: float = 0.02,
     return result, cfg, pot, nst, warm, m
 
 
+def field_from_args(args, dim: int, mixture: bool):
+    """The external field of mcjax's CLI flags (``mcjax/cli.py::
+    field_from_args``): None without a field flag; several compose in a
+    ``CompositeField`` (trap, gravity, walls, in that order)."""
+    fs = []
+    axis = args.field_axis if args.field_axis is not None else dim - 1
+    if args.trap is not None:
+        k = tuple(float(v) for v in args.trap.split(","))
+        fs.append(fields.HarmonicTrap(stiffness=k if len(k) > 1 else k[0],
+                                      dim=dim))
+    if args.species_gravity is not None:
+        if not mixture:
+            raise SystemExit("--species-gravity needs a mixture model "
+                             "(single species: --gravity)")
+        g = tuple(float(v) for v in args.species_gravity.split(","))
+        fs.append(fields.SpeciesField(fields.LinearField(g=1.0, axis=axis),
+                                      g))
+    elif args.gravity is not None:
+        fs.append(fields.LinearField(g=args.gravity, axis=axis))
+    if args.walls is not None:
+        parts = [float(v) for v in args.walls.split(",")]
+        if len(parts) < 2:
+            raise SystemExit("--walls needs LO,HI[,DIAM...]")
+        lo, hi, diams = parts[0], parts[1], parts[2:]
+        if len(diams) > 1:
+            fs.append(fields.SlitWalls(lo=lo, hi=hi, axis=axis,
+                                       diameters=tuple(diams)))
+        else:
+            fs.append(fields.SlitWalls(lo=lo, hi=hi, axis=axis,
+                                       diameter=diams[0] if diams else 0.0))
+    if not fs:
+        return None
+    return fs[0] if len(fs) == 1 else fields.CompositeField(tuple(fs))
+
+
+def _walls(field) -> list:
+    if isinstance(field, fields.CompositeField):
+        return [w for f in field.fields for w in _walls(f)]
+    return [field] if isinstance(field, fields.SlitWalls) else []
+
+
+def slab_start(cfg: SimConfig, field, state: SimState, mixture: bool
+               ) -> SimState:
+    """A start for a walled run: the workload's start with each wall
+    axis's coordinate scaled about 0, by the largest float32 factor below
+    (min(hi, -lo) / (L/2)) (1 - 1e-6) of the allowed centers [lo, hi]
+    (each species' bounds), so that every center lies inside the slab.
+    Unchanged without walls."""
+    walls = _walls(field)
+    if not walls:
+        return state
+    r = cells.unbin(cfg, state.pos, state.occ)
+    spec = r[:, cfg.dim] if mixture else None
+    half = cfg.box_length / 2.0
+    for w in walls:
+        probe = torch.tensor([0.0, 1.0], device=r.device)
+        lo, hi = w.bounds(probe, probe if mixture else None)
+        lo, hi = float(lo.max()), float(hi.min())
+        if not lo < 0.0 < hi:
+            raise ValueError(f"{w!r}: the slab must hold the box center to "
+                             "scale the start into it")
+        f = min(hi, -lo) / half * (1.0 - 1e-6)
+        r[:, w.axis] = r[:, w.axis] * f
+    if mixture:
+        return init_mixture_state(cfg, r[:, :cfg.dim], spec.to(torch.int32),
+                                  r.device)
+    return init_state(cfg, r.device, r[:, :cfg.dim])
+
+
+def timed_field_run(cfg: SimConfig, pot: Potential, field, state: SimState,
+                    sweeps: int, seed: int, label: str
+                    ) -> tuple[dict, SimState, torch.Tensor, SweepMetrics,
+                               SweepMetrics]:
+    """``timed_run`` under ``field`` (``run_field_sweeps`` from origin 0):
+    a warm-up run of ``sweeps`` sweeps, then a timed one of as many.
+    Returns (result dict, final state, final origin, warm-up metrics,
+    timed-run metrics)."""
+    dev = state.pos.device
+    f64 = torch.float64
+    origin = torch.zeros(cfg.dim, dtype=torch.float32, device=dev)
+    e_pair0 = float(total_energy_cells(cfg, pot, state.pos, state.occ, f64))
+    e_field0 = float(total_field_energy_cells(cfg, field, state.pos,
+                                              state.occ, origin, f64))
+    randoms = TorchRandoms(torch.Generator(dev).manual_seed(seed))
+    state, origin, warm = run_field_sweeps(cfg, pot, field, state, origin,
+                                           sweeps, randoms)
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, origin, m = run_field_sweeps(cfg, pot, field, state, origin,
+                                        sweeps, randoms)
+    end.record()
+    torch.cuda.synchronize(dev)
+    seconds = start.elapsed_time(end) / 1e3
+    result = rate_result(cfg, label, sweeps, seconds, state, m)
+    e_pair = float(total_energy_cells(cfg, pot, state.pos, state.occ, f64))
+    e_field = float(total_field_energy_cells(cfg, field, state.pos,
+                                             state.occ, origin, f64))
+    carried = (e_pair0 + e_field0 + float(warm.delta_e.double().sum())
+               + float(m.delta_e.double().sum()))
+    exact = e_pair + e_field
+    walls = _walls(field)
+    width = min(w.hi for w in walls) - max(w.lo for w in walls) \
+        if walls else cfg.box_length
+    result.update(
+        pair_energy=e_pair, field_energy=e_field,
+        pair_energy_start=e_pair0, field_energy_start=e_field0,
+        slab_density=cfg.n_atoms / (width * cfg.box_length ** (cfg.dim - 1)),
+        origin=origin.tolist(),
+        field_violations=int(field_violations(cfg, field, state.pos,
+                                              state.occ, origin)),
+        carried_energy=carried, energy_f64=exact,
+        carried_energy_rel_err=abs(carried - exact) / max(1.0, abs(exact)))
+    return result, state, origin, warm, m
+
+
+def run_bench_field(workload: str, field, n_atoms: int | None = None,
+                    nmax: int | None = None, n_moves: int | None = None,
+                    sweeps: int | None = None, seed: int = 0,
+                    phi: float = 0.5, wfac: float = 2.0
+                    ) -> tuple[dict, SimConfig, Potential, SimState,
+                               torch.Tensor, SweepMetrics, SweepMetrics]:
+    """A workload under an external ``field`` on the GPU (warm-up, then
+    ``sweeps`` timed; ``timed_field_run``), from ``slab_start``; nmax
+    defaults to ``DEFAULT_FIELD_NMAX``. Returns (result dict, cfg, pot,
+    final state, final origin, warm-up metrics, timed-run metrics)."""
+    dev = resolve_device(None)          # the GPU; raises without one
+    cfg, pot, state, label = build_workload(
+        workload, n_atoms, nmax or DEFAULT_FIELD_NMAX[workload], n_moves,
+        seed, phi, wfac, dev)
+    mixture = getattr(pot, "is_mixture", False)
+    state = slab_start(cfg, field, state, mixture)
+    label = label.replace(", cuda)", ", field, cuda)")
+    result, state, origin, warm, m = timed_field_run(
+        cfg, pot, field, state, sweeps or DEFAULT_SWEEPS[workload], seed,
+        label)
+    count_species(result, cfg, pot, state)
+    return result, cfg, pot, state, origin, warm, m
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", choices=("hard-disk", "lj3d", "ka3d"),
@@ -341,7 +510,8 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--phi", type=float, default=0.5, help="hard-disk only")
     ap.add_argument("--wfac", type=float, default=2.0,
                     help="hard-disk cell width in diameters (>= 1)")
-    ap.add_argument("--nmax", type=int, default=None, help="7 / 24 / 34")
+    ap.add_argument("--nmax", type=int, default=None,
+                    help="7 / 24 / 34 (under a field 7 / 28 / 40)")
     ap.add_argument("--moves", type=int, default=None, help="64 / 60 / 60")
     ap.add_argument("--sweeps", type=int, default=None,
                     help="100 / 30 / 100")
@@ -352,8 +522,30 @@ def main(argv: list[str] | None = None) -> None:
                     help="NPT: half-width of the ln V proposal")
     ap.add_argument("--volume-every", type=int, default=1,
                     help="NPT: a volume move after every k-th sweep")
+    ap.add_argument("--trap", type=str, default=None, metavar="K[,KY,...]",
+                    help="harmonic trap at the origin: scalar or per-axis "
+                         "stiffness")
+    ap.add_argument("--gravity", type=float, default=None, metavar="G",
+                    help="linear field g*x along --field-axis")
+    ap.add_argument("--species-gravity", type=str, default=None,
+                    metavar="G0,G1", help="per-species gravity (ka3d)")
+    ap.add_argument("--walls", type=str, default=None,
+                    metavar="LO,HI[,DIAM...]",
+                    help="hard slit walls on --field-axis; contact diameter "
+                         "(one, or one per species)")
+    ap.add_argument("--field-axis", type=int, default=None,
+                    help="axis of --gravity / --walls (default: the last)")
     args = ap.parse_args(argv)
-    if args.pressure is not None:
+    dim = 2 if args.workload == "hard-disk" else 3
+    field = field_from_args(args, dim, args.workload == "ka3d")
+    if field is not None:
+        if args.pressure is not None:
+            raise SystemExit("a field run is NVT (mcjax has no NPT run "
+                             "under a field)")
+        result, *_ = run_bench_field(args.workload, field, args.n, args.nmax,
+                                     args.moves, args.sweeps, args.seed,
+                                     args.phi, args.wfac)
+    elif args.pressure is not None:
         result, *_ = run_bench_npt(
             args.workload, args.pressure, args.dlnv_max, args.volume_every,
             args.n, args.nmax, args.moves, args.sweeps, args.seed, args.phi,

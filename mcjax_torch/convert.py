@@ -1,18 +1,27 @@
-"""Carry a state between the JAX package and the port as numpy arrays.
+"""Carry a state and a field between the JAX package and the port.
 
 ``state_from_numpy(np.asarray(s.pos), np.asarray(s.occ), s.sweep,
 s.overflow)`` takes an ``mcjax`` SimState across; ``state_to_numpy`` gives
 the same four arrays back. Both packages share the slab layout, so nothing
 is reordered; a mixture state's species plane comes across as it is.
+
+An external field crosses as a plain dict of its parameters
+(``field_to_spec`` reads one off a field of either package, whose field
+classes are dataclasses with the same names and constructor arguments);
+``field_from_spec`` builds the port's field from it. A frame origin
+crosses as a numpy float32 [dim] array (``origin_from_numpy``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from mcjax_torch.core.device import resolve_device
 from mcjax_torch.core.state import SimState
+from mcjax_torch.models import fields
 
 
 def state_from_numpy(pos, occ, sweep, overflow,
@@ -37,3 +46,49 @@ def state_to_numpy(state: SimState
     """(pos, occ, sweep, overflow) as numpy values."""
     return (state.pos.cpu().numpy(), state.occ.cpu().numpy(),
             np.int32(state.sweep), np.bool_(bool(state.overflow)))
+
+
+FIELD_CLASSES = {c.__name__: c for c in (
+    fields.HarmonicTrap, fields.LinearField, fields.SlitWalls,
+    fields.SpeciesField, fields.CompositeField)}
+
+
+def field_to_spec(field) -> dict:
+    """{"class": name, constructor argument: value, ...} of a field of
+    either package; tuples become lists, nested fields (``base``,
+    ``fields``) specs."""
+    spec = {"class": type(field).__name__}
+    for f in dataclasses.fields(field):
+        v = getattr(field, f.name)
+        if f.name == "base":
+            v = field_to_spec(v)
+        elif f.name == "fields":
+            v = [field_to_spec(x) for x in v]
+        elif isinstance(v, tuple):
+            v = list(v)
+        spec[f.name] = v
+    return spec
+
+
+def field_from_spec(spec: dict):
+    """The port's field from ``field_to_spec``'s dict (or one written by
+    hand with the same keys)."""
+    spec = dict(spec)
+    name = spec.pop("class")
+    if name not in FIELD_CLASSES:
+        raise ValueError(f"unknown field class {name!r}")
+    if "base" in spec:
+        spec["base"] = field_from_spec(spec["base"])
+    if "fields" in spec:
+        spec["fields"] = tuple(field_from_spec(x) for x in spec["fields"])
+    args = {k: tuple(v) if isinstance(v, list) else v
+            for k, v in spec.items()}
+    return FIELD_CLASSES[name](**args)
+
+
+def origin_from_numpy(origin, device: str | torch.device | None = None
+                      ) -> torch.Tensor:
+    """A frame origin (numpy float32 [dim]) as a tensor on ``device``
+    (CUDA unless named)."""
+    o = np.array(origin, dtype=np.float32).reshape(-1)
+    return torch.from_numpy(o).to(resolve_device(device))

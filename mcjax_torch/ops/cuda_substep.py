@@ -37,12 +37,25 @@ s^2 = f32(s * s), read from device memory, before its cutoff, overlap or
 energy, in the moves and in the frozen-cache build, as the TPU kernels
 multiply by their SMEM s^2 (``mcjax/ops/pallas_sweep.py:435-446,
 :610-636``). Without a scale the NVT kernels run, unchanged.
+
+Each kernel also has a field form, another compile-time variant (mcjax's
+static ``field`` of ``_make_kernel``, ``mcjax/ops/pallas_sweep.py:140-145``):
+an external one-body field (``mcjax_torch.models.fields``, flattened into
+``field_params``) is evaluated in the kernel at physical x = wrap(stored +
+origin), the origin read from device memory, so it moves on the device
+with no host sync. A move into the forbidden region is rejected before any
+pair work; a field with energy adds its term to dE once a move (and makes
+the 2D hard-core kernel energetic). The field form never combines with the
+NPT form: the JAX package has no NPT run under a field. The 2D kernel's
+field form is built from ``csrc/substep_field.cu`` into a library of its
+own (``LIB_FIELD``), beside ``csrc/substep.cu``'s NVT and NPT forms.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -50,6 +63,8 @@ import torch
 from mcjax_torch._build import CudaLibrary
 from mcjax_torch.core.config import SimConfig
 from mcjax_torch.core.device import check_tensors
+from mcjax_torch.core.geometry import wrap_into_box
+from mcjax_torch.models import fields
 from mcjax_torch.models.mixtures import LJMixture, _blend
 from mcjax_torch.models.potentials import (HardSphere, LennardJones, Potential,
                                            fma_f32, pair_interaction)
@@ -62,45 +77,57 @@ KERNEL_NMAX = 16
 KERNEL_NMAX_LJ = 32
 KERNEL_NMAX_MIX = 64
 
+_ARGS_2D = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    ctypes.c_float, ctypes.c_float]
+_ARGS_LJ = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    ctypes.c_float, ctypes.c_float]
+_ARGS_MIX = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float]
+_P, _S = ctypes.c_void_p, ctypes.c_void_p   # a pointer, the stream
+
 LIB = CudaLibrary("substep", {
-    "mcjax_substep_2d": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ctypes.c_void_p],
+    "mcjax_substep_2d": [*_ARGS_2D, _P, _S],
     "mcjax_substep_2d_shape": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_void_p],
 })
 
+# The 2D kernel's field form: a library of its own (csrc/substep_field.cu,
+# the kernel of csrc/substep_2d.cuh), so that nvcc builds it beside LIB.
+LIB_FIELD = CudaLibrary("substep_field", {
+    "mcjax_substep_2d_field": [*_ARGS_2D, _P, _P, _P, _P, ctypes.c_float,
+                               _S],
+    "mcjax_substep_2d_field_shape": [ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p],
+})
+
 LIB_LJ = CudaLibrary("substep_lj", {
-    "mcjax_substep_lj3d": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ctypes.c_void_p],
+    "mcjax_substep_lj3d": [*_ARGS_LJ, _P, _S],
+    "mcjax_substep_lj3d_field": [*_ARGS_LJ, _P, _P, _S],
     "mcjax_substep_lj3d_shape": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 })
 
 LIB_MIX = CudaLibrary("substep_mix", {
-    "mcjax_substep_mix3d": [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
-        ctypes.c_void_p,
-        ctypes.c_void_p],
+    "mcjax_substep_mix3d": [*_ARGS_MIX, _P, _S],
+    "mcjax_substep_mix3d_field": [*_ARGS_MIX, _P, _P, _S],
     "mcjax_substep_mix3d_shape": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 })
 
@@ -161,6 +188,83 @@ def keep_frozen(cfg: SimConfig, r_cut: float, lower: torch.Tensor,
     return squared_norm(d, -1) <= reach2_t
 
 
+MAX_FIELD_TERMS = 4    # csrc/field.cuh kMaxTerms
+
+
+class FieldTerm(ctypes.Structure):
+    """csrc/field.cuh ``mcjax_field::Term``."""
+    _fields_ = [("kind", ctypes.c_int), ("axis", ctypes.c_int),
+                ("species", ctypes.c_int), ("unit", ctypes.c_int),
+                ("k", ctypes.c_float * 3), ("c", ctypes.c_float * 3),
+                ("g", ctypes.c_float), ("coupling", ctypes.c_float * 2),
+                ("lo", ctypes.c_float * 2), ("hi", ctypes.c_float * 2)]
+
+
+class FieldParams(ctypes.Structure):
+    """csrc/field.cuh ``mcjax_field::Params``: the field form's field."""
+    _fields_ = [("n", ctypes.c_int), ("energetic", ctypes.c_int),
+                ("axes", ctypes.c_int), ("t", FieldTerm * MAX_FIELD_TERMS)]
+
+
+def _f32(v) -> float:
+    return float(torch.as_tensor(v, dtype=torch.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def field_params(field, dim: int, resolved: bool) -> FieldParams:
+    """The field form's ``FieldParams`` for ``field`` in a ``dim``-D model,
+    species-resolved (the mixture kernel: species 0 and 1) if
+    ``resolved``. Every constant is the float32 value the plain version
+    computes with: f32(0.5 k) and f32(c) of a trap, f32(g), the couplings
+    f32(c_s) and the wall bounds of ``SlitWalls.bounds`` for each species.
+    Raises NotImplementedError, naming the field, for one no kernel
+    covers: more than MAX_FIELD_TERMS terms, a nested composite, a
+    ``SpeciesField`` around other than a trap or a linear field, or a
+    class the kernels do not know. Cached per field (fields are frozen):
+    a sweep should not pay for the small tensor ops."""
+    terms = field.fields if isinstance(field, fields.CompositeField) \
+        else (field,)
+    if len(terms) > MAX_FIELD_TERMS:
+        raise NotImplementedError(
+            f"the sub-step kernels' field form takes at most "
+            f"{MAX_FIELD_TERMS} terms; {field!r} has {len(terms)}")
+    fp = FieldParams(n=len(terms), energetic=int(field.has_energy))
+    species = torch.tensor([0.0, 1.0])
+    for i, f in enumerate(terms):
+        t = fp.t[i]
+        if isinstance(f, fields.SpeciesField):
+            if not resolved:
+                raise TypeError("SpeciesField is species-resolved; run it "
+                                "through a mixture model")
+            c = fields._select_by_species(f.couplings, species)
+            t.species, t.coupling[:] = 1, c.tolist()
+            f = f.base
+        if isinstance(f, fields.HarmonicTrap):
+            if f.dim != dim:
+                raise ValueError(f"{f!r} is {f.dim}D in a {dim}D model")
+            t.kind = 0
+            t.k[:dim] = [_f32(0.5 * k) for k in f.stiffness]
+            t.c[:dim] = [_f32(c) for c in f.center]
+            fp.axes |= (1 << dim) - 1
+        elif isinstance(f, fields.LinearField) and f.axis < dim:
+            t.kind, t.axis, t.g, t.unit = 1, f.axis, _f32(f.g), f.g == 1.0
+            fp.axes |= 1 << f.axis
+        elif isinstance(f, fields.SlitWalls) and f.axis < dim:
+            t.kind, t.axis = 2, f.axis
+            fp.axes |= 1 << f.axis
+            x = torch.zeros(dim, 2)
+            lo, hi = f.bounds(x, species if resolved else None)
+            t.lo[:] = lo.expand(2).tolist()
+            t.hi[:] = hi.expand(2).tolist()
+        else:
+            raise NotImplementedError(
+                f"no field form of the sub-step kernels covers {f!r} (in "
+                f"{field!r}): they take traps, linear fields and slit walls"
+                f" on an axis < {dim}, flat compositions of them, and per-"
+                "species couplings of a trap or a linear field")
+    return fp
+
+
 def scale_squared(scale: torch.Tensor | float, dtype: torch.dtype,
                   device: torch.device) -> torch.Tensor:
     """s^2 of the NPT box scale s as a 0-d tensor: f32(s * s), as the JAX
@@ -196,22 +300,28 @@ def kernel_stats(device: torch.device) -> torch.Tensor:
 
 
 def kernel_shape(lib: CudaLibrary, nmax: int, cells: int = 0,
-                 scaled: bool = False) -> dict:
+                 scaled: bool = False, field: bool = False) -> dict:
     """The launch shape of a sub-step kernel at ``nmax`` on the current
-    device (its NPT form if ``scaled``), from the CUDA runtime: registers a
-    thread, static and dynamic shared memory a block (bytes), local memory
-    a thread (bytes), resident warps an SM and the staged frozen slots a
-    warp (energetic kernels) or a thread (2D); for the 2D kernel also the
-    blocks of its cooperative grid at ``cells`` cells a color."""
+    device (its NPT form if ``scaled``, its field form if ``field``), from
+    the CUDA runtime: registers a thread, static and dynamic shared memory
+    a block (bytes), local memory a thread (bytes), resident warps an SM
+    and the staged frozen slots a warp (energetic kernels) or a thread
+    (2D); for the 2D kernel also the blocks of its cooperative grid at
+    ``cells`` cells a color."""
     keys = ["registers", "static_smem", "dynamic_smem", "local_bytes",
             "warps_per_sm", "staged_capacity"]
-    if lib is LIB:
-        fn, args = "mcjax_substep_2d_shape", (nmax, cells, int(scaled))
+    form = 2 if field else int(scaled)
+    if lib is LIB and field:
+        lib, fn, args = LIB_FIELD, "mcjax_substep_2d_field_shape", (nmax,
+                                                                   cells)
+        keys.append("grid_blocks")
+    elif lib is LIB:
+        fn, args = "mcjax_substep_2d_shape", (nmax, cells, form)
         keys.append("grid_blocks")
     else:
         fn = {"substep_lj": "mcjax_substep_lj3d_shape",
               "substep_mix": "mcjax_substep_mix3d_shape"}[lib.name]
-        args = (nmax, int(scaled))
+        args = (nmax, form)
     out = (ctypes.c_int * len(keys))()
     err = getattr(lib.load(), fn)(*args, ctypes.addressof(out))
     if err != 0:
@@ -250,7 +360,8 @@ def color_substep(cfg: SimConfig, pot: Potential, color: int,
                   pos: torch.Tensor, occ: torch.Tensor, pick_u: torch.Tensor,
                   disp: torch.Tensor, acc_u: torch.Tensor | None = None,
                   record: dict | None = None, *,
-                  scale: torch.Tensor | float | None = None
+                  scale: torch.Tensor | float | None = None,
+                  field=None, origin: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
     """n_moves Metropolis moves in every cell of one color (plain version).
@@ -265,6 +376,13 @@ def color_substep(cfg: SimConfig, pot: Potential, color: int,
     required. Under an NPT box ``scale`` s every squared distance is
     s^2 r2 (s^2 = f32(s * s)) before the overlap or the energy.
 
+    An external ``field`` (``mcjax_torch.models.fields``) is evaluated at
+    physical x = wrap(stored + ``origin``) (float32 [dim], zeros if None),
+    as ``mcjax.ops.sweep.color_substep`` evaluates it: a move into its
+    forbidden region is rejected, and a field with energy adds its term to
+    dE, (dE + E(new)) - E(old), and makes even a hard-core model take the
+    exp test (and need ``acc_u``).
+
     ``record``, if given, receives per-cell maps over [*bs]: ``de_cell``
     (the summed dE of accepted moves), ``in_cell`` (moves of a non-empty
     cell that stayed inside it, the ones that need pair work) and, for
@@ -276,8 +394,6 @@ def color_substep(cfg: SimConfig, pot: Potential, color: int,
     int64 tensors.
     """
     energetic = pot.has_energy
-    if energetic and acc_u is None:
-        raise ValueError("an energetic model needs acceptance uniforms")
     nbrp, nbr_occ = cells.neighbor_stack(cfg, pos, occ, color)
     slot = torch.arange(cfg.nmax, device=pos.device).reshape(
         (cfg.nmax,) + (1,) * cfg.dim)
@@ -297,7 +413,8 @@ def color_substep(cfg: SimConfig, pot: Potential, color: int,
         return e_o.sum(dim=0) + e_n.sum(dim=(0, 1)), ov
 
     return metropolis_moves(cfg, color, pos[color], occ[color], pick_u, disp,
-                            acc_u, energy_at, energetic, record)
+                            acc_u, energy_at, energetic, record,
+                            field=field, origin=origin)
 
 
 def scaled_r2(scale: torch.Tensor | float | None, device: torch.device):
@@ -313,7 +430,9 @@ def scaled_r2(scale: torch.Tensor | float | None, device: torch.device):
 def metropolis_moves(cfg: SimConfig, color: int, ownp: torch.Tensor,
                      own_occ: torch.Tensor, pick_u: torch.Tensor,
                      disp: torch.Tensor, acc_u: torch.Tensor | None,
-                     energy_at, energetic: bool, record: dict | None
+                     energy_at, energetic: bool, record: dict | None, *,
+                     field=None, origin: torch.Tensor | None = None,
+                     ownspec: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                 torch.Tensor]:
     """The move loop ``color_substep`` and the mixture sub-step share.
@@ -321,10 +440,18 @@ def metropolis_moves(cfg: SimConfig, color: int, ownp: torch.Tensor,
     ``ownp`` [dim, nmax, *bs] are the coordinates of the color's cells and
     ``energy_at(x, ownp, valid_own, sel)`` returns the mover's (energy or
     None, overlap) at x, given the current own coordinates, the own slots
-    it interacts with and the one-hot mask of the mover's slot. Returns
-    (new ownp, dE, accepted, proposed) and fills ``record`` as
-    ``color_substep`` documents.
+    it interacts with and the one-hot mask of the mover's slot; its energy
+    is None unless ``energetic``. ``field`` / ``origin`` are
+    ``color_substep``'s; with ``ownspec`` (the own cells' species plane,
+    [nmax, *bs]) the field is species-resolved in the mixture sub-step's
+    order, dE + (E_s(new) - E_s(old)). Returns (new ownp, dE, accepted,
+    proposed) and fills ``record`` as ``color_substep`` documents; a move
+    into the field's forbidden region counts as one that left its cell.
     """
+    field_energy = field is not None and field.has_energy
+    if (energetic or field_energy) and acc_u is None:
+        raise ValueError("an energetic model or field needs acceptance "
+                         "uniforms")
     nmax, n_m = cfg.nmax, cfg.n_moves
     dev = ownp.device
     bs = tuple(own_occ.shape)
@@ -341,6 +468,10 @@ def metropolis_moves(cfg: SimConfig, color: int, ownp: torch.Tensor,
     de_cell = torch.zeros(bs, dtype=torch.float32, device=dev)
     in_cell = torch.zeros(bs, dtype=torch.int32, device=dev)
     margin = torch.full(bs, float("inf"), dtype=torch.float32, device=dev)
+    if field is not None:
+        if origin is None:
+            origin = torch.zeros(cfg.dim, dtype=torch.float32, device=dev)
+        org = origin.reshape((cfg.dim,) + (1,) * len(bs))
 
     for m in range(n_m):
         p = torch.floor(pick_u[m] * occ_f).to(torch.int64)
@@ -354,10 +485,20 @@ def metropolis_moves(cfg: SimConfig, color: int, ownp: torch.Tensor,
 
         e_new, ov = energy_at(new, ownp, valid_own, sel)
         live = nonempty & ~oob
+        if field is not None:
+            sx = None if ownspec is None else \
+                torch.where(sel, ownspec, 0.0).sum(dim=0)
+            px_new = wrap_into_box(new + org, cfg.box_length)
+            live = live & ~fields.species_forbidden(field, px_new, sx)
         accept = live & ~ov
-        if energetic:
-            e_old, _ = energy_at(old, ownp, valid_own, sel)
-            de = e_new - e_old
+        if energetic or field_energy:
+            de = None
+            if energetic:
+                e_old, _ = energy_at(old, ownp, valid_own, sel)
+                de = e_new - e_old
+            if field_energy:
+                px_old = wrap_into_box(old + org, cfg.box_length)
+                de = fields.field_delta(field, de, px_new, px_old, sx)
             a = torch.exp(-cfg.beta * de)
             accept = accept & (acc_u[m] < a)
             de_acc = torch.where(accept, de, 0.0)
@@ -371,7 +512,7 @@ def metropolis_moves(cfg: SimConfig, color: int, ownp: torch.Tensor,
     n_prop = n_m * nonempty.sum()
     if record is not None:
         record.update(de_cell=de_cell, in_cell=in_cell)
-        if energetic:
+        if energetic or field_energy:
             record["margin"] = margin
     return ownp, de_sum, n_acc, n_prop
 
@@ -414,7 +555,8 @@ Draw = tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]
 
 def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
              occ: torch.Tensor, perm: torch.Tensor, draws: list[Draw],
-             start: int = 0, scale: torch.Tensor | float | None = None
+             start: int = 0, scale: torch.Tensor | float | None = None,
+             field=None, origin: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sub-steps [start, start + n) of a sweep, n = len(draws): sub-step j
     works on color perm[j] with draws[j - start] = (pick_u, disp, acc_u);
@@ -431,12 +573,18 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
     species plane after the coordinates (dim + 1 planes). ``scale`` (a 0-d
     float32 tensor on pos's device, or a float) is the NPT box scale: the
     kernels' NPT forms then read s^2 from device memory, so a scale that
-    changes on the device every sweep costs no host sync.
+    changes on the device every sweep costs no host sync. An external
+    ``field`` (``mcjax_torch.models.fields``) at frame ``origin`` (float32
+    [dim] on pos's device; zeros if None) runs the kernels' field forms,
+    which read the origin from device memory likewise; a field with energy
+    needs every ``acc_u``, even over hard disks. A field does not combine
+    with a scale (the JAX package has no NPT run under a field).
     """
     bs = cfg.block_shape
     mixture = getattr(pot, "is_mixture", False)
     planes = cfg.dim + 1 if mixture else cfg.dim
     n = len(draws)
+    need_acc = pot.has_energy or (field is not None and field.has_energy)
     if n < 1 or start < 0 or start + n > cfg.n_colors:
         raise ValueError(f"sub-steps [{start}, {start + n}) outside "
                          f"[0, {cfg.n_colors})")
@@ -449,13 +597,22 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
         want[f"pick_u[{j}]"] = (pick_u, torch.float32, (cfg.n_moves, *bs))
         want[f"disp[{j}]"] = (disp, torch.float32,
                               (cfg.n_moves, cfg.dim, *bs))
-        if pot.has_energy:
+        if need_acc:
             if acc_u is None:
-                raise ValueError("an energetic model needs acceptance "
-                                 "uniforms")
+                raise ValueError("an energetic model or field needs "
+                                 "acceptance uniforms")
             want[f"acc_u[{j}]"] = (acc_u, torch.float32, (cfg.n_moves, *bs))
     if isinstance(scale, torch.Tensor):
         want["scale"] = (scale, torch.float32, ())
+    if field is not None:
+        if scale is not None:
+            raise NotImplementedError(
+                "an external field under an NPT box scale: the JAX package "
+                "has no such run, and no kernel form covers it")
+        if origin is None:
+            origin = torch.zeros(cfg.dim, dtype=torch.float32,
+                                 device=pos.device)
+        want["origin"] = (origin, torch.float32, (cfg.dim,))
     check_tensors(pos.device, want)
     dev = pos.device
     if dev.type == "cpu":
@@ -469,7 +626,7 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
         for j, draw in enumerate(draws):
             color = int(perm[start + j])
             own_new, *out = plain(cfg, pot, color, pos, occ, *draw,
-                                  scale=scale)
+                                  scale=scale, field=field, origin=origin)
             pos[color] = own_new
             outs.append(out)
         de, acc, prop = (torch.stack(t) for t in zip(*outs))
@@ -478,19 +635,27 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"no sub-step for device {dev}")
     s2 = None if scale is None else scale_squared(scale, torch.float32, dev)
+    fk = None if field is None else \
+        FieldKernel(field_params(field, cfg.dim, lib is LIB_MIX), origin)
     if lib is LIB:
         counts = torch.zeros((n, 2), dtype=torch.int64, device=dev)
-        launch_kernel(cfg, pot, pos, occ, perm, start,
-                      [d[0] for d in draws], [d[1] for d in draws], counts,
-                      s2)
-        de = torch.zeros(n, dtype=torch.float32, device=dev)
+        if fk is None:
+            launch_kernel(cfg, pot, pos, occ, perm, start,
+                          [d[0] for d in draws], [d[1] for d in draws],
+                          counts, s2)
+            de = torch.zeros(n, dtype=torch.float32, device=dev)
+        else:
+            de_map = torch.zeros((n, *bs), dtype=torch.float32, device=dev)
+            launch_field_kernel(cfg, pot, pos, occ, perm, start, draws,
+                                counts, de_map, fk)
+            de = de_map.flatten(1).sum(1)
         return de, counts[:, 0], counts[:, 1]
     de_map = torch.empty((n, *bs), dtype=torch.float32, device=dev)
     acc_map = torch.empty((n, *bs), dtype=torch.int32, device=dev)
     launch = launch_lj_kernel if lib is LIB_LJ else launch_mix_kernel
     for j, (pick_u, disp, acc_u) in enumerate(draws):
         launch(cfg, pot, pos, occ, perm, start + j, pick_u, disp, acc_u,
-               de_map[j], acc_map[j], s2)
+               de_map[j], acc_map[j], s2, fk)
     color_occ = occ.index_select(0, perm[start:start + n])
     proposed = cfg.n_moves * (color_occ > 0).flatten(1).sum(1)
     return (de_map.flatten(1).sum(1),
@@ -501,15 +666,25 @@ def substep(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
             occ: torch.Tensor, perm: torch.Tensor, i: int,
             pick_u: torch.Tensor, disp: torch.Tensor,
             acc_u: torch.Tensor | None = None,
-            scale: torch.Tensor | float | None = None
+            scale: torch.Tensor | float | None = None,
+            field=None, origin: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sub-step i of a sweep, color perm[i]: ``substeps`` with a range of
-    one (one launch on CUDA), at box scale ``scale``. Returns (dE,
-    accepted, proposed) as 0-d tensors (float32, int64, int64) on pos's
-    device."""
+    one (one launch on CUDA), at box scale ``scale`` or under ``field`` at
+    frame ``origin``. Returns (dE, accepted, proposed) as 0-d tensors
+    (float32, int64, int64) on pos's device."""
     de, acc, prop = substeps(cfg, pot, pos, occ, perm,
-                             [(pick_u, disp, acc_u)], start=i, scale=scale)
+                             [(pick_u, disp, acc_u)], start=i, scale=scale,
+                             field=field, origin=origin)
     return de[0], acc[0], prop[0]
+
+
+class FieldKernel(NamedTuple):
+    """A field form's launch arguments: the field's ``FieldParams`` (host
+    memory, copied into the launch) and the frame origin (float32 [dim] on
+    the device, read by the kernel)."""
+    params: FieldParams
+    origin: torch.Tensor
 
 
 def s2_pointer(s2: torch.Tensor | None) -> int | None:
@@ -545,30 +720,62 @@ def launch_kernel(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
         npt=s2 is not None)
 
 
+def launch_field_kernel(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
+                        occ: torch.Tensor, perm: torch.Tensor, start: int,
+                        draws: list[Draw], counts: torch.Tensor,
+                        de_map: torch.Tensor, fk: FieldKernel) -> None:
+    """One cooperative launch of the 2D disk kernel's field form on inputs
+    ``substeps`` has checked: ``launch_kernel`` under the field ``fk``,
+    also writing each cell's summed dE of accepted moves into de_map[j]
+    (float32 [n, H, W]) when the field has energy, whose acceptance
+    uniforms (each draw's acc_u) it then reads."""
+    h, w = cfg.block_shape
+    n = len(draws)
+    ptrs = ctypes.c_void_p * n
+    LIB_FIELD.launch(
+        "mcjax_substep_2d_field",
+        pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), start, n,
+        ptrs(*(d[0].data_ptr() for d in draws)),
+        ptrs(*(d[1].data_ptr() for d in draws)),
+        counts.data_ptr(), kernel_state(pos.device).data_ptr(),
+        h, w, cfg.nmax, cfg.n_moves,
+        cfg.cell_width, cfg.box_length / 2.0, cfg.box_length,
+        pot.diameter * pot.diameter, *cull_constants(cfg, pot.diameter),
+        ctypes.addressof(fk.params), fk.origin.data_ptr(),
+        ptrs(*(0 if d[2] is None else d[2].data_ptr() for d in draws)),
+        de_map.data_ptr(), -cfg.beta,
+        torch.cuda.current_stream(pos.device).cuda_stream, field=True)
+
+
 def launch_lj_kernel(cfg: SimConfig, pot: LennardJones, pos: torch.Tensor,
                      occ: torch.Tensor, perm: torch.Tensor, i: int,
                      pick_u: torch.Tensor, disp: torch.Tensor,
                      acc_u: torch.Tensor, de_map: torch.Tensor,
-                     acc_map: torch.Tensor, s2: torch.Tensor | None = None
-                     ) -> None:
+                     acc_map: torch.Tensor, s2: torch.Tensor | None = None,
+                     fk: FieldKernel | None = None) -> None:
     """One launch of the 3D LJ kernel on inputs ``substep`` has checked:
     updates pos[perm[i]] in place and writes each cell's summed dE of
     accepted moves into ``de_map`` (float32 [*bs]) and its accept count into
     ``acc_map`` (int32 [*bs]); adds to ``kernel_stats``. The model's
     constants go in as the float32 values the plain version rounds them
-    to. ``s2`` selects the NPT form, as for ``launch_kernel``."""
-    LIB_LJ.launch(
-        "mcjax_substep_lj3d",
-        pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), i,
-        pick_u.data_ptr(), disp.data_ptr(), acc_u.data_ptr(),
-        de_map.data_ptr(), acc_map.data_ptr(),
-        kernel_state(pos.device).data_ptr(),
-        cfg.half_cps, cfg.nmax, cfg.n_moves,
-        cfg.cell_width, cfg.box_length / 2.0, cfg.box_length, cfg.beta,
-        pot.sigma * pot.sigma, 4.0 * pot.epsilon, pot.shift_value,
-        pot.r_cut * pot.r_cut, *cull_constants(cfg, pot.r_cut),
-        s2_pointer(s2), torch.cuda.current_stream(pos.device).cuda_stream,
-        npt=s2 is not None)
+    to. ``s2`` selects the NPT form, as for ``launch_kernel``; ``fk`` the
+    field form."""
+    args = (pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), i,
+            pick_u.data_ptr(), disp.data_ptr(), acc_u.data_ptr(),
+            de_map.data_ptr(), acc_map.data_ptr(),
+            kernel_state(pos.device).data_ptr(),
+            cfg.half_cps, cfg.nmax, cfg.n_moves,
+            cfg.cell_width, cfg.box_length / 2.0, cfg.box_length, cfg.beta,
+            pot.sigma * pot.sigma, 4.0 * pot.epsilon, pot.shift_value,
+            pot.r_cut * pot.r_cut, *cull_constants(cfg, pot.r_cut))
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    if fk is not None:
+        LIB_LJ.launch("mcjax_substep_lj3d_field", *args,
+                      ctypes.addressof(fk.params), fk.origin.data_ptr(),
+                      stream, field=True)
+        return
+    LIB_LJ.launch("mcjax_substep_lj3d", *args, s2_pointer(s2), stream,
+                  npt=s2 is not None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -592,21 +799,26 @@ def launch_mix_kernel(cfg: SimConfig, pot: LJMixture, pos: torch.Tensor,
                       occ: torch.Tensor, perm: torch.Tensor, i: int,
                       pick_u: torch.Tensor, disp: torch.Tensor,
                       acc_u: torch.Tensor, de_map: torch.Tensor,
-                      acc_map: torch.Tensor, s2: torch.Tensor | None = None
-                      ) -> None:
+                      acc_map: torch.Tensor, s2: torch.Tensor | None = None,
+                      fk: FieldKernel | None = None) -> None:
     """One launch of the 3D mixture kernel on inputs ``substep`` has
     checked: updates the coordinates of pos[perm[i]] in place and writes
     each cell's summed dE of accepted moves into ``de_map`` and its accept
     count into ``acc_map``, and adds to ``kernel_stats``, as
-    ``launch_lj_kernel`` does (``s2`` likewise)."""
-    LIB_MIX.launch(
-        "mcjax_substep_mix3d",
-        pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), i,
-        pick_u.data_ptr(), disp.data_ptr(), acc_u.data_ptr(),
-        de_map.data_ptr(), acc_map.data_ptr(),
-        kernel_state(pos.device).data_ptr(),
-        cfg.half_cps, cfg.nmax, cfg.n_moves,
-        cfg.cell_width, cfg.box_length / 2.0, cfg.box_length, cfg.beta,
-        *mixture_constants(pot), *cull_constants(cfg, pot.r_cut),
-        s2_pointer(s2), torch.cuda.current_stream(pos.device).cuda_stream,
-        npt=s2 is not None)
+    ``launch_lj_kernel`` does (``s2`` and ``fk`` likewise; the field is
+    species-resolved)."""
+    args = (pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), i,
+            pick_u.data_ptr(), disp.data_ptr(), acc_u.data_ptr(),
+            de_map.data_ptr(), acc_map.data_ptr(),
+            kernel_state(pos.device).data_ptr(),
+            cfg.half_cps, cfg.nmax, cfg.n_moves,
+            cfg.cell_width, cfg.box_length / 2.0, cfg.box_length, cfg.beta,
+            *mixture_constants(pot), *cull_constants(cfg, pot.r_cut))
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    if fk is not None:
+        LIB_MIX.launch("mcjax_substep_mix3d_field", *args,
+                       ctypes.addressof(fk.params), fk.origin.data_ptr(),
+                       stream, field=True)
+        return
+    LIB_MIX.launch("mcjax_substep_mix3d", *args, s2_pointer(s2), stream,
+                   npt=s2 is not None)

@@ -70,15 +70,14 @@ def color_substep_mixture(cfg: SimConfig, pot, color: int, pos: torch.Tensor,
     species plane is frozen during the moves and re-attached on return.
     ``record`` receives the per-cell maps of ``color_substep`` (``de_cell``,
     ``in_cell``, ``margin``). Under an NPT box ``scale`` s every squared
-    distance is s^2 r2, as in ``color_substep``. The JAX package's external
-    ``field`` / ``origin`` terms are not ported; passing one raises.
+    distance is s^2 r2, as in ``color_substep``. An external ``field`` at
+    frame ``origin`` is species-resolved (``energy_s`` / ``forbidden_s``
+    where the field has them) and enters dE as dE + (E_s(new) - E_s(old)),
+    as ``mcjax.ops.mixture.color_substep_mixture`` computes it.
 
     Returns (new own-color block [dim + 1, nmax, *bs], dE, accepted,
     proposed) as ``color_substep`` does.
     """
-    if field is not None or origin is not None:
-        raise NotImplementedError(
-            "the external-field form of the mixture sub-step is not ported")
     dim = cfg.dim
     own = pos[color]                                   # [dim+1, nmax, *bs]
     ownp, ownspec = own[:dim], own[dim]
@@ -110,7 +109,7 @@ def color_substep_mixture(cfg: SimConfig, pot, color: int, pos: torch.Tensor,
 
     ownp_new, de, n_acc, n_prop = metropolis_moves(
         cfg, color, ownp, own_occ, pick_u, disp, acc_u, energy_at, True,
-        record)
+        record, field=field, origin=origin, ownspec=ownspec)
     return torch.cat([ownp_new, ownspec[None]], dim=0), de, n_acc, n_prop
 
 

@@ -46,7 +46,8 @@ class SweepMetrics(NamedTuple):
 
 
 def mc_sweep(cfg: SimConfig, pot: Potential, state: SimState,
-             randoms: RandomProvider, scale: torch.Tensor | None = None
+             randoms: RandomProvider, scale: torch.Tensor | None = None,
+             field=None, origin: torch.Tensor | None = None
              ) -> tuple[SimState, SweepMetrics]:
     """One full MC sweep: shuffled color sub-steps, then a grid shift.
 
@@ -56,21 +57,40 @@ def mc_sweep(cfg: SimConfig, pot: Potential, state: SimState,
     writes new buffers, which the returned state holds. ``scale`` (a 0-d
     float32 tensor on the state's device, or None) is the NPT box scale s
     of the JAX package's stored-frame convention: pair distances are
-    s^2 r~^2 (``mcjax_torch.ops.npt``).
+    s^2 r~^2 (``mcjax_torch.ops.npt``). An external ``field`` is evaluated
+    at physical x = wrap(stored + ``origin``); the sweep does not move the
+    origin (``mcjax_torch.ops.extfield.field_sweep`` does, with the same
+    shift).
     """
+    new_state, m, _ = sweep_with_schedule(cfg, pot, state, randoms, scale,
+                                          field, origin)
+    return new_state, m
+
+
+def sweep_with_schedule(cfg: SimConfig, pot: Potential, state: SimState,
+                        randoms: RandomProvider,
+                        scale: torch.Tensor | None = None, field=None,
+                        origin: torch.Tensor | None = None
+                        ) -> tuple[SimState, SweepMetrics,
+                                   tuple[torch.Tensor, torch.Tensor]]:
+    """``mc_sweep``, also returning the sweep's shift draws (axis, d) as
+    device tensors."""
     perm, axis, d = randoms.schedule(cfg, state.sweep)
     pos, occ = state.pos, state.occ
-    draws = [randoms.substep(cfg, state.sweep, i, need_acc=pot.has_energy)
+    need_acc = pot.has_energy or (field is not None and field.has_energy)
+    draws = [randoms.substep(cfg, state.sweep, i, need_acc=need_acc)
              for i in range(cfg.n_colors)]
     de, acc, prop = cuda_substep.substeps(cfg, pot, pos, occ, perm, draws,
-                                          scale=scale)
+                                          scale=scale, field=field,
+                                          origin=origin)
     if (state.sweep + 1) % cfg.shift_every == 0:
         pos, occ, ovf = cuda_shift.shift(cfg, pos, occ, axis, d)
     else:
         ovf = torch.zeros((), dtype=torch.bool, device=pos.device)
     new_state = SimState(pos=pos, occ=occ, sweep=state.sweep + 1,
                          overflow=state.overflow | ovf)
-    return new_state, SweepMetrics(de.sum(), acc.sum(), prop.sum(), ovf)
+    return (new_state, SweepMetrics(de.sum(), acc.sum(), prop.sum(), ovf),
+            (axis, d))
 
 
 def run_sweeps(cfg: SimConfig, pot: Potential, state: SimState,

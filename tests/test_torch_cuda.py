@@ -688,3 +688,265 @@ def test_energetic_npt_kernels_at_the_cutoff_edge(cuda, model, ulps, outside,
     assert torch.equal(st.pos[0].view(torch.int32), own.view(torch.int32))
     gap = (de_map - rec["de_cell"]).abs()
     assert bool((gap <= 1e-5 * rec["de_cell"].abs() + 1e-4).all())
+
+
+# ---- the field forms -------------------------------------------------------
+
+def _fields():
+    from mcjax_torch.models import fields
+    return fields
+
+
+def _field_cases(dim, box, species=False):
+    """Fields a field-form test runs under: walls alone, walls with
+    gravity on the same axis, and a trap (with per-species couplings for
+    a mixture). The walls sit 1.25 inside the faces of the last axis."""
+    f = _fields()
+    lo, hi = -box / 2 + 1.25, box / 2 - 1.25
+    walls = (f.SlitWalls(lo=lo, hi=hi, axis=dim - 1, diameters=(1.0, 0.8))
+             if species else
+             f.SlitWalls(lo=lo, hi=hi, axis=dim - 1, diameter=1.0))
+    gravity = (f.SpeciesField(f.LinearField(g=1.0, axis=dim - 1), (0.3, 0.1))
+               if species else f.LinearField(g=0.3, axis=dim - 1))
+    trap = f.HarmonicTrap(stiffness=0.05, dim=dim)
+    if species:
+        trap = f.SpeciesField(trap, (1.0, 2.0))
+    return {"walls": f.CompositeField((walls,)),
+            "walls_gravity": f.CompositeField((gravity, walls)),
+            "trap": trap}
+
+
+def _origin(cfg, device, where):
+    """Frame origin 0, near +-L/2 on every axis, or placing the physical
+    seam in the middle of a cell on every axis (``seam``)."""
+    if where == "zero":
+        return torch.zeros(cfg.dim, device=device)
+    if where == "edge":
+        e = cfg.box_length / 2 - 1e-3
+        return torch.tensor([e * (-1) ** a for a in range(cfg.dim)],
+                            device=device)
+    return torch.full((cfg.dim,), 0.5 * cfg.cell_width, device=device)
+
+
+@pytest.mark.parametrize("case", [(4096, 7), "full"])
+@pytest.mark.parametrize("kind", ["walls", "walls_gravity", "trap"])
+@pytest.mark.parametrize("where", ["zero", "edge", "seam"])
+def test_disk_field_form_matches_plain(cuda, case, kind, where):
+    """The 2D kernel's field form against the plain sub-step under the same
+    field: walls alone as one launch of the sweep's four sub-steps, bit for
+    bit (positions and counts); an energetic field (the energetic-over-
+    hard-core form) as one launch of the four sub-steps and sub-step by
+    sub-step, bit for bit outside cells where a decision came within a
+    relative 1e-5 of a tie, dE within 1e-5 relative + 1e-4. Every launch
+    is the field form; in the ``full`` case the overflow pass runs
+    (counted)."""
+    cfg, pot, st, rnd = _disk_case(case, cuda)
+    field = _field_cases(2, cfg.box_length)[kind]
+    origin = _origin(cfg, cuda, where)
+    perm, _, _ = rnd.schedule(cfg, st.sweep)
+    draws = [rnd.substep(cfg, st.sweep, i, field.has_energy)
+             for i in range(cfg.n_colors)]
+    stats = cuda_substep.kernel_stats(cuda)
+    stats.zero_()
+    lib = cuda_substep.LIB_FIELD
+    before = (lib.launches, lib.field_launches)
+    if not field.has_energy:
+        plain = st.pos.clone()
+        acc, prop = [], []
+        for i, draw in enumerate(draws):
+            color = int(perm[i])
+            own, de, a, p = cuda_substep.color_substep(
+                cfg, pot, color, plain, st.occ, *draw, field=field,
+                origin=origin)
+            plain[color] = own
+            acc.append(int(a))
+            prop.append(int(p))
+        de, k_acc, k_prop = cuda_substep.substeps(
+            cfg, pot, st.pos, st.occ, perm, draws, field=field,
+            origin=origin)
+        torch.cuda.synchronize()
+        assert torch.equal(st.pos.view(torch.int32), plain.view(torch.int32))
+        assert k_acc.tolist() == acc and k_prop.tolist() == prop
+        assert de.tolist() == [0.0] * 4
+        n_launch = 1
+    else:
+        # as a sweep launches it: the four sub-steps in one launch, each
+        # reading its own acceptance uniforms; sub-step j's input is the
+        # start with the colors of sub-steps 0..j-1 from the launch's output
+        start = st.pos.clone()
+        swept = st.pos.clone()
+        k_de, k_acc, k_prop = cuda_substep.substeps(
+            cfg, pot, swept, st.occ, perm, draws, field=field, origin=origin)
+        torch.cuda.synchronize()
+        inp = start.clone()
+        for i, draw in enumerate(draws):
+            color = int(perm[i])
+            rec = {}
+            own, de, a, p = cuda_substep.color_substep(
+                cfg, pot, color, inp, st.occ, *draw, rec, field=field,
+                origin=origin)
+            differs = (swept[color].view(torch.int32)
+                       != own.view(torch.int32)).any(0).any(0)
+            assert not bool((differs & (rec["margin"] > 1e-5)).any())
+            assert int(k_prop[i]) == int(p)
+            if not bool(differs.any()):
+                assert int(k_acc[i]) == int(a)
+                assert abs(float(k_de[i]) - float(de)) <= \
+                    1e-5 * abs(float(de)) + 1e-4
+            inp[color] = swept[color]
+        # and sub-step by sub-step
+        for i, draw in enumerate(draws):
+            color = int(perm[i])
+            rec = {}
+            own, de, a, p = cuda_substep.color_substep(
+                cfg, pot, color, st.pos, st.occ, *draw, rec, field=field,
+                origin=origin)
+            k_de, k_acc, k_prop = cuda_substep.substep(
+                cfg, pot, st.pos, st.occ, perm, i, *draw, field=field,
+                origin=origin)
+            torch.cuda.synchronize()
+            differs = (st.pos[color].view(torch.int32)
+                       != own.view(torch.int32)).any(0).any(0)
+            assert not bool((differs & (rec["margin"] > 1e-5)).any())
+            assert int(k_prop) == int(p)
+            if not bool(differs.any()):
+                assert int(k_acc) == int(a)
+                assert abs(float(k_de) - float(de)) <= \
+                    1e-5 * abs(float(de)) + 1e-4
+        n_launch = 5
+    assert (lib.launches, lib.field_launches) == (before[0] + n_launch,
+                                                  before[1] + n_launch)
+    assert (int(stats[0]) > 0) == (case == "full")
+
+
+def _field_energetic_matches_plain(cuda, model, layout, field, origin_at):
+    """``_energetic_kernel_matches_plain`` for the field forms: all 8
+    colors under ``field`` at the frame origin ``origin_at``. Returns the
+    kernels' counters over the 8 sub-steps."""
+    cfg, pot, st, warm = _energetic_case((model, layout), cuda)
+    lib = cuda_substep.LIB_LJ if model == "lj" else cuda_substep.LIB_MIX
+    plain = (cuda_substep.color_substep if model == "lj"
+             else mixture.color_substep_mixture)
+    rnd = TorchRandoms(torch.Generator(cuda).manual_seed(cfg.n_atoms + 7))
+    if warm:
+        st, _ = mt.run_sweeps(cfg, pot, st, warm, rnd)
+    origin = _origin(cfg, cuda, origin_at)
+    perm, _, _ = rnd.schedule(cfg, st.sweep)
+    stats = cuda_substep.kernel_stats(cuda)
+    stats.zero_()
+    for i in range(cfg.n_colors):
+        draw = rnd.substep(cfg, st.sweep, i, True)
+        color = int(perm[i])
+        rec = {}
+        own, de, acc, prop = plain(cfg, pot, color, st.pos, st.occ, *draw,
+                                   rec, field=field, origin=origin)
+        before = (lib.launches, lib.field_launches)
+        k_de, k_acc, k_prop = cuda_substep.substep(
+            cfg, pot, st.pos, st.occ, perm, i, *draw, field=field,
+            origin=origin)
+        torch.cuda.synchronize()
+        assert (lib.launches, lib.field_launches) == (before[0] + 1,
+                                                      before[1] + 1)
+        differs = (st.pos[color].view(torch.int32)
+                   != own.view(torch.int32)).any(dim=0).any(dim=0)
+        assert not bool((differs & (rec["margin"] > 1e-5)).any())
+        assert int(k_prop) == int(prop)
+        if not bool(differs.any()):
+            assert int(k_acc) == int(acc)
+            assert abs(float(k_de) - float(de)) <= 1e-5 * abs(float(de)) + 1e-4
+    return stats.tolist()
+
+
+@pytest.mark.parametrize("model,layout", [("lj", (4000, 24)), ("lj", "full"),
+                                          ("ka", (4500, 34)), ("ka", "full")])
+@pytest.mark.parametrize("kind", ["walls", "walls_gravity", "trap"])
+@pytest.mark.parametrize("where", ["zero", "edge", "seam"])
+def test_energetic_field_forms_match_plain(cuda, model, layout, kind, where):
+    """The LJ and mixture kernels' field forms against their plain
+    versions (the mixture's field species-resolved) for all 8 colors, at
+    origin 0, near +-L/2 and with the physical seam mid-cell; in the
+    ``full`` layout the frozen slots overflow the shared memory and the
+    counted pass runs."""
+    box = {"lj": 4000, "ka": 4500}
+    if layout == "full":
+        box_l = 6 * 2.55
+    else:
+        rho = 0.8 if model == "lj" else 1.2
+        box_l = (box[model] / rho) ** (1 / 3)
+    field = _field_cases(3, box_l, species=model == "ka")[kind]
+    counts = _field_energetic_matches_plain(cuda, model, layout, field, where)
+    assert counts[1] > 0
+    if layout == "full":
+        assert counts[0] > 0
+
+
+@pytest.mark.parametrize("model", ["disks", "lj", "ka"])
+@pytest.mark.parametrize("ulps", [-4, -3, -2, -1, 1, 2, 3, 4])
+def test_field_forms_at_the_wall_edge(cuda, model, ulps):
+    """Centers on the walls' bounds moved by ``ulps`` steps of the
+    physical coordinate's float32 grid (the wrap's: x + L/2 is rounded, so
+    a step is a few ulps of the bound; in the mixture each species on its
+    own bound), one a cell column on each wall, so the upper row lies
+    beyond hi for positive ulps and the lower beyond lo for negative
+    ones; every move has zero displacement (and a zero acceptance uniform),
+    so the field's forbidden test alone decides it: half the centers lie
+    beyond their bound. Kernel and plain version take the same moves, bit
+    for bit."""
+    f = _fields()
+    if model == "disks":
+        cfg, pot = _cfg(4096, 7), mt.HardSphere(1.0)
+    elif model == "lj":
+        cfg, pot, _ = bench.build_lj3d(4000, 24, 16, device="cpu")
+    else:
+        cfg, pot, _ = bench.build_ka3d(4500, 34, 16, device="cpu")
+    dim, axis = cfg.dim, cfg.dim - 1
+    w, box = cfg.cell_width, cfg.box_length
+    walls = f.SlitWalls(lo=-box / 4, hi=box / 4, axis=axis, diameter=1.0,
+                        diameters=(1.0, 0.8) if model == "ka" else ())
+    field = f.CompositeField((walls,))
+    # one center a column of cells, at its cell's middle on the other axes
+    cps = cfg.cells_per_side
+    grid = torch.stack(torch.meshgrid(*[torch.arange(cps)] * (dim - 1),
+                                      indexing="ij"), -1).reshape(-1, dim - 1)
+    other = (grid + 0.5) * w - box / 2
+    n_col = other.shape[0]
+    spec = (torch.arange(2 * n_col) % 2).float()
+    lo, hi = walls.bounds(torch.zeros(dim, 2 * n_col),
+                          spec if model == "ka" else None)
+    # the physical coordinate is wrap(x) = ((x + L/2) mod L) - L/2, on the
+    # float32 grid of x + L/2: step the centers along that grid
+    half = torch.tensor(box / 2)
+    edge = torch.cat([hi.expand(2 * n_col)[:n_col],
+                      lo.expand(2 * n_col)[n_col:]]) + half
+    toward = torch.full_like(edge, math.inf if ulps > 0 else -math.inf)
+    for _ in range(abs(ulps)):
+        edge = torch.nextafter(edge, toward)
+    edge = edge - half
+    x = torch.cat([torch.cat([other, other]), edge[:, None]], dim=1)
+    cfg = cfg.replace(n_atoms=2 * n_col)
+    if model == "ka":
+        st = mixture.init_mixture_state(cfg, x, spec.int(), cuda)
+    else:
+        st = mt.init_state(cfg, cuda, x)
+    origin = torch.zeros(dim, device=cuda)
+    perm = torch.arange(cfg.n_colors, dtype=torch.int32, device=cuda)
+    bs = cfg.block_shape
+    plain = (mixture.color_substep_mixture if model == "ka"
+             else cuda_substep.color_substep)
+    accepted = 0
+    for i in range(cfg.n_colors):
+        pick_u = torch.rand((cfg.n_moves, *bs), device=cuda)
+        disp = torch.zeros((cfg.n_moves, dim, *bs), device=cuda)
+        acc_u = None if model == "disks" else torch.zeros_like(pick_u)
+        own, _, acc, prop = plain(cfg, pot, i, st.pos, st.occ, pick_u, disp,
+                                  acc_u, field=field, origin=origin)
+        _, k_acc, k_prop = cuda_substep.substep(
+            cfg, pot, st.pos, st.occ, perm, i, pick_u, disp, acc_u,
+            field=field, origin=origin)
+        torch.cuda.synchronize()
+        assert torch.equal(st.pos[i].view(torch.int32),
+                           own.view(torch.int32))
+        assert (int(k_acc), int(k_prop)) == (int(acc), int(prop))
+        accepted += int(acc)
+    # half the centers are beyond their bound, the other half inside it
+    assert 0 < accepted < cfg.n_moves * cfg.n_atoms

@@ -198,8 +198,66 @@ BIG = mt.SimConfig(**{**KW, "n_atoms": 1 << 20,
                       "cells_per_side": 640})
 
 
+def _field_site(site):
+    """(mcjax's result, the port's, the result with every product rounded
+    apart, or None where the site has no product) of an external-field
+    expression, compiled as the sub-steps compile it: the trap's per-axis
+    sum, g * x in a move's dE (with a pair energy, and without one, whose
+    zero XLA folds), a species coupling times an energy in a mixture move's
+    dE, and the physical wrap at the 1M lj3d box with origins near +-L/2."""
+    from mcjax.core.geometry import wrap_into_box as jax_wrap
+    from mcjax.models import fields as jf
+
+    from mcjax_torch.core.geometry import wrap_into_box
+    from mcjax_torch.models import fields as tf
+
+    rng = np.random.default_rng(13)
+    n = 1 << 16
+    xo = rng.uniform(-50.0, 50.0, (3, n)).astype(np.float32)
+    xn = (xo + rng.uniform(-0.3, 0.3, (3, n))).astype(np.float32)
+    de = rng.uniform(-3.0, 3.0, n).astype(np.float32)
+    s = rng.integers(0, 2, n).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (xo, xn, de, s)]
+    f32 = np.float32
+    if site == "trap_sum":
+        k = (0.3, 0.7, 1.3)
+        want = jax.jit(jf.HarmonicTrap(stiffness=k, dim=3).energy)(xo)
+        got = tf.HarmonicTrap(stiffness=k, dim=3).energy(t[0])
+        terms = [f32(0.5 * kk) * xo[a] * xo[a] for a, kk in enumerate(k)]
+        return want, got, terms[0] + terms[1] + terms[2]
+    if site == "gravity_de":
+        jg, g = jf.LinearField(g=0.1, axis=2), f32(0.1)
+        want = jax.jit(lambda d, a, b: d + jg.energy(b) - jg.energy(a))(
+            de, xo, xn)
+        want0 = jax.jit(lambda a, b: 0.0 + jg.energy(b) - jg.energy(a))(
+            xo, xn)
+        tg = tf.LinearField(g=0.1, axis=2)
+        got = tf.field_delta(tg, t[2], t[1], t[0])
+        got0 = tf.field_delta(tg, None, t[1], t[0])
+        np.testing.assert_array_equal(got0.numpy().view(np.uint32),
+                                      np.asarray(want0).view(np.uint32))
+        return want, got, (de + g * xn[2]) - g * xo[2]
+    if site == "species_de":
+        jsp = jf.SpeciesField(jf.LinearField(g=1.0, axis=2), (0.1, 0.05))
+        want = jax.jit(lambda d, a, b, s: d + (
+            jf.species_energy(jsp, b, s) - jf.species_energy(jsp, a, s)))(
+            de, xo, xn, s)
+        got = tf.field_delta(tf.SpeciesField(tf.LinearField(g=1.0, axis=2),
+                                             (0.1, 0.05)),
+                             t[2], t[1], t[0], t[3])
+        c = np.where(s == 0, f32(0.1), f32(0.05))
+        return want, got, de + (c * xn[2] - c * xo[2])
+    box = (1_000_000 / 0.8) ** (1.0 / 3.0)
+    org = np.array([box / 2 - 1e-3, -box / 2, 0.37], np.float32)
+    want = jax.jit(lambda a, o: jax_wrap(a + o[:, None], box))(xn, org)
+    got = wrap_into_box(t[1] + torch.from_numpy(org)[:, None], box)
+    return want, got, None
+
+
 @pytest.mark.parametrize("site", ["r2_own", "r2_nbr", "lower_bound",
-                                  "r2_own_3d", "r2_nbr_3d", "mixture_nbr_3d"])
+                                  "r2_own_3d", "r2_nbr_3d", "mixture_nbr_3d",
+                                  "trap_sum", "gravity_de", "species_de",
+                                  "physical_wrap"])
 def test_contraction_sites_match_xla(site):
     """The places where XLA on the CPU fuses a multiply into an add (squared
     distance in 2D and 3D, cell lower bound) and the port's fma_f32 agree
@@ -208,7 +266,17 @@ def test_contraction_sites_match_xla(site):
     test_torch_lj3d.py::test_lj_pair_energy_bitwise.) ``mixture_nbr_3d``
     composes the 3D squared distance with the Kob-Andersen pair energy, as
     the mixture sub-step does, compiled as one function: the contractions
-    stay where the port puts them when the two meet."""
+    stay where the port puts them when the two meet. The external-field
+    sites (``_field_site``) are the ones the sub-step kernels' field forms
+    write out as fmas (csrc/field.cuh)."""
+    if site in ("trap_sum", "gravity_de", "species_de", "physical_wrap"):
+        want, got, separate = _field_site(site)
+        want = np.asarray(want)
+        np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                      want.view(np.uint32))
+        if separate is not None:
+            assert np.count_nonzero(separate != want) > 0.01 * want.size
+        return
     if site == "mixture_nbr_3d":
         rng = np.random.default_rng(12)
         shape = (26, 3, 34, 4, 4, 4)
