@@ -72,6 +72,28 @@ and checks three paths, each through the user's entry point
   sweep's of this run, and each field form's kernel time beside its NVT
   form's on the same input.
 
+* the in-kernel draws (mcjax's bench defaults, ``mcjax_torch.ops.random.
+  PhiloxRandoms``): the Philox words of the kernels' generator
+  (``csrc/philox.cuh``) against the plain ``philox4x32`` on 4,194,304
+  counters and Random123's known-answer vectors, bit for bit; each Philox
+  form at the 1M main-path shapes against its plain version
+  (``PhiloxRandoms.move_draws``, then the plain sub-steps) and against
+  its host-random kernel fed the same draws materialized on the card (2D:
+  one launch of 4 sub-steps, pos, occ and counts bit for bit; lj3d and
+  ka3d at ih_k 8: all 8 colors under the near-tie rule, dE against the
+  plain version's; the kernels line's ``max_abs_err`` is the difference
+  from the plain version); a 2D small run (N =
+  4096, 5 sweeps) through the Philox form against the plain CPU path
+  under the same PhiloxRandoms, bit for bit; the main paths at mcjax's
+  bench defaults, in the Philox form (2D at n_moves 64 and 8, lj3d and
+  ka3d at ih_k 8, as deep as their host-draw paths), under the same gates
+  as those paths and timed beside them; a resume (2 + 2 sweeps against 4,
+  bit for bit, 2D and lj3d at 1M, both providers); and the full
+  statistical gate of the in-kernel draws (``mcjax_torch.utils.rng_gate``:
+  hard disks 262,144, LJ 110,592, ka3d 87,793), printed check by check.
+  Each Philox form is timed beside its host-random twin on the same state
+  and draws, with its bound counting the Philox calls' INT32 operations.
+
 Any failure raises and the script exits non-zero. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no
 result. The second-to-last lines are a JSON object of per-kernel numbers
@@ -108,6 +130,18 @@ OPS_PER_LJ_TERM = 20
 # inv6 2, bracket fma 2, shift subtract 1, energy multiply 1, cutoff
 # multiply, compare and select 3, accumulate 1.
 OPS_PER_MIX_TERM = 23
+# INT32 issue rate of one H100 SXM: 64 INT32 lanes an SM a clock (the
+# Hopper architecture white paper) x 132 SMs x 1.98 GHz, the boost clock
+# of the data sheet's float32 rate above.
+PEAK_INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# INT32 operations of one Philox4x32-10 call, counted from the source
+# (csrc/philox.cuh): 10 rounds of 2 mul.hi, 2 mul.lo and 2 three-input
+# xors, and 2 key adds in 9 of them; and of one word's transform (a shift
+# and a mask or a convert) into a uniform or a half-sum.
+OPS_PER_PHILOX_CALL = 10 * 6 + 9 * 2
+OPS_PER_PHILOX_WORD = 2
+# The kernels line's rows of the energetic kernels' Philox forms.
+PHILOX_ROWS = {"lj3d": "substep_lj_philox", "ka3d": "substep_mix_philox"}
 
 # The NPT phases. Pressures: mcjax's virial pressure of each fluid at a
 # small N (tools/npt_pressure.py: lj3d at N = 4,000 at its defaults, ka3d
@@ -460,29 +494,31 @@ def check_energetic_small_run_against_cpu(mt, cuda_substep, cuda_shift,
           f"{int(occ.sum())} particles")
 
 
-def substep_bound_ms(cfg, st, inputs, cells, ops_per_test=OPS_PER_PAIR_TEST
-                     ) -> tuple[float, str]:
+def substep_bound_ms(cfg, st, inputs, cells, ops_per_test=OPS_PER_PAIR_TEST,
+                     draws_read=True, int_ops=0) -> tuple[float, str]:
     """2D: least time for one launch of the sweep's sub-steps on this run's
     data: live slots read once and the active colors' live slots written
-    once, occupancies and every sub-step's random inputs read once, the
-    counts written; pair tests the occupancies need, every live slot of
-    the own and neighbor cells for each move (``ops_per_test`` each; the
-    NPT form's s^2 multiply adds one)."""
+    once, occupancies and every sub-step's random inputs read once (none
+    for the Philox form, ``draws_read`` False), the counts written; pair
+    tests the occupancies need, every live slot of the own and neighbor
+    cells for each move (``ops_per_test`` each; the NPT form's s^2 multiply
+    adds one); ``int_ops`` INT32 operations (the in-kernel draws')."""
     _, perm, draws = inputs
     colors = [int(c) for c in perm[:len(draws)]]
     occ = st.occ
     live = int(occ.sum())
     own_live = sum(int(occ[c].sum()) for c in colors)
     nbytes = (4 * cfg.dim * live + occ.numel() * 4
-              + sum(4 * (p.numel() + d.numel()) for p, d, _ in draws)
               + 4 * cfg.dim * own_live + 16 * len(draws))
+    if draws_read:
+        nbytes += sum(4 * (p.numel() + d.numel()) for p, d, _ in draws)
     ops = 0
     for color in colors:
         _, nbr_occ = cells.neighbor_stack(cfg, st.pos, occ, color)
         own = occ[color].long()
         tests = torch.where(own > 0, (own - 1) + nbr_occ.long().sum(0), 0)
         ops += ops_per_test * cfg.n_moves * int(tests.sum())
-    return bound(nbytes, ops)
+    return bound(nbytes, ops, int_ops)
 
 
 def bound_terms(cfg, st, inputs, cells) -> int:
@@ -500,19 +536,24 @@ def bound_terms(cfg, st, inputs, cells) -> int:
     return int(terms.sum())
 
 
-def energetic_substep_bound_ms(cfg, st, inputs, cells, ops_per_term
-                                ) -> tuple[float, str]:
+def energetic_substep_bound_ms(cfg, st, inputs, cells, ops_per_term,
+                               draws_read=True, int_ops=0
+                               ) -> tuple[float, str]:
     """3D energetic sub-step: least time for one sub-step on this run's
     data. Bytes: live slots (every plane) and occupancies read once, the
-    random inputs read once, the own live slots' coordinates and the two
-    per-cell maps written once. Operations: ``bound_terms`` pair terms."""
+    random inputs read once (none for the Philox forms, ``draws_read``
+    False), the own live slots' coordinates and the two per-cell maps
+    written once. Operations: ``bound_terms`` pair terms, and ``int_ops``
+    INT32 operations (the in-kernel draws')."""
     _, perm, i, draws, _ = inputs
     color = int(perm[i])
     occ = st.occ
     nbytes = (4 * st.pos.shape[1] * int(occ.sum()) + 4 * occ.numel()
-              + sum(4 * t.numel() for t in draws)
               + 4 * cfg.dim * int(occ[color].sum()) + 8 * cfg.cells_per_color)
-    return bound(nbytes, ops_per_term * bound_terms(cfg, st, inputs, cells))
+    if draws_read:
+        nbytes += sum(4 * t.numel() for t in draws)
+    return bound(nbytes, ops_per_term * bound_terms(cfg, st, inputs, cells),
+                 int_ops)
 
 
 def shift_bound_ms(cfg, st) -> tuple[float, str]:
@@ -523,8 +564,12 @@ def shift_bound_ms(cfg, st) -> tuple[float, str]:
     return bound(nbytes, 0)
 
 
-def bound(nbytes: int, ops: int) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
+def bound(nbytes: int, ops: int, int_ops: int = 0) -> tuple[float, str]:
+    """max(bytes / bandwidth, float32 ops / float32 peak, INT32 ops / INT32
+    issue rate): the two pipes issue side by side, so the larger operation
+    time bounds them."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = max(ops / PEAK_F32_OPS_PER_S, int_ops / PEAK_INT32_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -534,15 +579,17 @@ def reset(libs) -> None:
         lib.launches = 0
         lib.npt_launches = 0
         lib.field_launches = 0
+        lib.philox_launches = 0
 
 
 def expect_launches(libs, launches, substep_lib, per_sweep,
                     total_sweeps, npt: bool = False,
-                    field: bool = False) -> None:
+                    field: bool = False, philox: bool = False) -> None:
     """The run launched its sub-step kernel ``per_sweep`` times a sweep
     (once for 2D disks, once per color for the energetic models), each
-    launch its NPT form if ``npt``, its field form if ``field`` and its
-    NVT form if neither, the shift once per sweep, and no other kernel."""
+    launch its NPT form if ``npt``, its field form if ``field``, its
+    Philox form if ``philox`` and its NVT form if none, the shift once
+    per sweep, and no other kernel."""
     want = {name: 0 for name in libs}
     want[substep_lib] = per_sweep * total_sweeps
     want["shift"] = total_sweeps
@@ -563,20 +610,33 @@ def expect_launches(libs, launches, substep_lib, per_sweep,
     if field_launches != want_field:
         raise AssertionError(f"field-form launches {field_launches}, want "
                              f"{want_field}")
+    philox_launches = {name: lib.philox_launches
+                       for name, lib in libs.items()}
+    want_philox = {name: 0 for name in libs}
+    if philox:
+        want_philox[substep_lib] = want[substep_lib]
+    if philox_launches != want_philox:
+        raise AssertionError(f"Philox-form launches {philox_launches}, want "
+                             f"{want_philox}")
 
 
-def run_main_path(mt, bench, libs, n_moves: int, stats: torch.Tensor) -> dict:
-    """2D main path through the user's entry point, with every kernel's
-    launch count and the sub-step kernel's overflow-pass cells taken over
-    exactly this run."""
+def run_main_path(mt, bench, libs, n_moves: int, stats: torch.Tensor,
+                  rng: str = "host") -> dict:
+    """2D main path through the user's entry point with ``rng`` draws
+    (the in-kernel ones run the Philox form), with every kernel's launch
+    count and the sub-step kernel's overflow-pass cells taken over exactly
+    this run."""
     reset(libs)
     stats.zero_()
     result, cfg, pot, st, _, m = bench.run_bench(n_moves=n_moves,
-                                                 sweeps=MAIN_SWEEPS)
+                                                 sweeps=MAIN_SWEEPS, rng=rng)
     torch.cuda.synchronize()
     launches = {name: lib.launches for name, lib in libs.items()}
     total_sweeps = 2 * MAIN_SWEEPS                   # warm-up + timed
-    expect_launches(libs, launches, "substep", 1, total_sweeps)
+    philox = rng == "in-kernel"
+    expect_launches(libs, launches,
+                    "substep_philox" if philox else "substep", 1,
+                    total_sweeps, philox=philox)
     check_result(mt, cfg, pot, st, result)
     result.update(mt.validate_state(cfg, st, pot))   # incl. no overlap
     result["launches"] = launches
@@ -589,11 +649,13 @@ def run_main_path(mt, bench, libs, n_moves: int, stats: torch.Tensor) -> dict:
 
 
 def run_energetic_main_path(mt, bench, libs, workload: str,
-                            stats: torch.Tensor) -> dict:
-    """An energetic main path (lj3d, ka3d) through the user's entry point:
-    launch counts and the sub-step kernels' counters (overflow cells, full
-    pair terms) over exactly this run, then the invariants (for ka3d the A
-    and B populations too) and the energy anchor."""
+                            stats: torch.Tensor, rng: str = "host") -> dict:
+    """An energetic main path (lj3d, ka3d) through the user's entry point
+    with ``rng`` draws (the in-kernel ones run the Philox form, at the
+    bench's ih_k): launch counts and the sub-step kernels' counters
+    (overflow cells, full pair terms) over exactly this run, then the
+    invariants (for ka3d the A and B populations too) and the energy
+    anchor."""
     w = ENERGETIC[workload]
     cfg0, pot0, start = getattr(bench, w["build"])(1_000_000, w["nmax"], 60,
                                                    seed=0, device="cuda")
@@ -603,12 +665,13 @@ def run_energetic_main_path(mt, bench, libs, workload: str,
     reset(libs)
     stats.zero_()
     result, cfg, pot, st, warm, m = getattr(bench, w["run"])(
-        sweeps=w["sweeps"])
+        sweeps=w["sweeps"], rng=rng)
     torch.cuda.synchronize()
     launches = {name: lib.launches for name, lib in libs.items()}
     overflow_cells, full_terms = stats.tolist()
     total_sweeps = 2 * w["sweeps"]
-    expect_launches(libs, launches, w["lib"], cfg.n_colors, total_sweeps)
+    expect_launches(libs, launches, w["lib"], cfg.n_colors, total_sweeps,
+                    philox=rng == "in-kernel")
     check_result(mt, cfg, pot, st, result)
     result.update(mt.validate_state(cfg, st, pot,
                                     expect_species=w["species"]))
@@ -1554,6 +1617,332 @@ def run_field_main_path(mt, bench, libs, workload: str, cfg_path,
     return result
 
 
+# The Philox (in-kernel draw) phases.
+PHILOX_COUNTERS = 1 << 22       # counters of the words check (4,194,304)
+# Random123's philox4x32-10 known-answer vectors: counter, key, words.
+PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0),
+     (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((0xffffffff,) * 4, (0xffffffff, 0xffffffff),
+     (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344),
+     (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+]
+PHILOX_SEED = 0x5EED_0000_0000_002A   # both key words nonzero
+PHILOX_IH_K = 8                        # mcjax's bench default in 3D
+SMALL_PHILOX = dict(n=4096, sweeps=5)
+RESUME_SWEEPS = (2, 2)
+
+
+def check_philox_words(cuda_substep) -> float:
+    """Philox words: the kernel (csrc/philox.cuh through
+    mcjax_philox_words) against the plain philox4x32 on the card, bit for
+    bit, on PHILOX_COUNTERS random counters, and on Random123's three
+    known-answer vectors."""
+    from mcjax_torch.ops.random import philox4x32
+    g = torch.Generator("cuda").manual_seed(11)
+    ctr = torch.randint(0, 1 << 32, (4, PHILOX_COUNTERS), generator=g,
+                        device="cuda", dtype=torch.int64)
+    key = (0x9E3779B9, 0xDEADBEEF)
+    got = cuda_substep.philox_words(ctr, key)
+    want = philox4x32(ctr, key)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"Philox words: kernel != plain at "
+                             f"{int((got != want).any(0).sum())} counters")
+    for c, k, words in PHILOX_KAT:
+        t = torch.tensor(c, dtype=torch.int64, device="cuda").reshape(4, 1)
+        out = tuple(cuda_substep.philox_words(t, k)[:, 0].tolist())
+        if out != words:
+            raise AssertionError(f"Philox known-answer vector {c}, {k}: "
+                                 f"{[hex(v) for v in out]}")
+    print(f"Philox words: kernel == plain on {PHILOX_COUNTERS} counters; "
+          f"Random123's {len(PHILOX_KAT)} known-answer vectors reproduced")
+    return 0.0
+
+
+def check_philox_disk_kernel(cuda_substep, cfg, pot, st):
+    """The 2D Philox form at 1M: one launch of a sweep's four sub-steps
+    against its plain version on the same start (``PhiloxRandoms.
+    move_draws``, then four plain sub-steps), and against the host-random
+    kernel fed the same draws materialized on the card: positions,
+    occupancies and counts bit for bit. Returns (largest difference from
+    the plain version, the timing input)."""
+    from mcjax_torch.ops.random import PhiloxRandoms
+    rnd = PhiloxRandoms(PHILOX_SEED, "cuda")
+    perm, _, _ = rnd.schedule(cfg, st.sweep)
+    key = rnd.kernel_key(st.sweep)
+    before = st.pos.clone()
+    occ0 = st.occ.clone()
+    want = st.pos.clone()
+    draws, plain_counts = [], []
+    for i in range(cfg.n_colors):
+        color = int(perm[i])
+        draws.append(rnd.move_draws(cfg, st.sweep, i, color, False))
+        own, _, acc, prop = cuda_substep.color_substep(
+            cfg, pot, color, want, st.occ, *draws[-1][:2])
+        want[color] = own
+        plain_counts.append((int(acc), int(prop)))
+    twin = st.pos.clone()
+    _, t_acc, t_prop = cuda_substep.substeps(cfg, pot, twin, st.occ, perm,
+                                             draws)
+    work = st.pos.clone()
+    _, k_acc, k_prop = cuda_substep.substeps(cfg, pot, work, st.occ, perm,
+                                             key)
+    torch.cuda.synchronize()
+    t_counts = list(zip(t_acc.tolist(), t_prop.tolist()))
+    k_counts = list(zip(k_acc.tolist(), k_prop.tolist()))
+    if not (bitwise_equal(work, want) and bitwise_equal(st.occ, occ0)
+            and k_counts == plain_counts):
+        raise AssertionError(f"2D Philox form != its plain version (counts "
+                             f"{k_counts} against {plain_counts})")
+    if not (bitwise_equal(work, twin) and k_counts == t_counts):
+        raise AssertionError("2D Philox form != host-random kernel fed the "
+                             "same Philox draws")
+    print(f"substep_philox, one launch of 4 sub-steps (colors "
+          f"{perm.tolist()}): bitwise equal to its plain version "
+          f"(PhiloxRandoms.move_draws and 4 plain sub-steps) and to the "
+          f"host-random kernel fed the same draws (pos, occ, counts); "
+          f"accepted / proposed {k_counts}")
+    return abs_err(work, want), (before, perm, key, draws)
+
+
+def check_philox_energetic(cuda_substep, workload, cfg, pot, st):
+    """An energetic Philox form at 1M, all 8 colors of a sweep in turn:
+    each launch against its plain version (``PhiloxRandoms.move_draws``,
+    then the plain sub-step) and against the host-random kernel fed the
+    same draws materialized on the card, on the same state: bit for bit
+    outside cells where the plain version's decision came within NEAR_TIE
+    of a tie, the sub-step's dE within DE_REL + DE_ABS of the plain
+    version's where no cell differs. The state goes on from the twin's.
+    Returns (largest per-cell dE difference from the plain version, the
+    timing input: state before the last sub-step, perm, i, its draws, the
+    plain version's record, the key)."""
+    from mcjax_torch.ops.random import PhiloxRandoms
+    w = ENERGETIC[workload]
+    launch = getattr(cuda_substep, w["launch"])
+    plain = plain_substep(cuda_substep, pot)
+    rnd = PhiloxRandoms(PHILOX_SEED + w["seed"], "cuda", PHILOX_IH_K)
+    perm, _, _ = rnd.schedule(cfg, st.sweep)
+    key = rnd.kernel_key(st.sweep)
+    ph = cuda_substep.philox_args(cfg, key, True)
+    twin, work = st.pos.clone(), st.pos.clone()
+    maps = [(torch.empty(cfg.block_shape, dtype=torch.float32, device="cuda"),
+             torch.empty(cfg.block_shape, dtype=torch.int32, device="cuda"))
+            for _ in range(2)]
+    (de_t, acc_t), (de_k, acc_k) = maps
+    n_diff = n_twin = n_ties = 0
+    worst = 0.0
+    timing = None
+    for i in range(cfg.n_colors):
+        color = int(perm[i])
+        draws = rnd.move_draws(cfg, st.sweep, i, color, True)
+        before = twin.clone()
+        rec = {}
+        own, de, acc, _ = plain(cfg, pot, color, before.clone(), st.occ,
+                                *draws, rec)
+        launch(cfg, pot, twin, st.occ, perm, i, *draws, de_t, acc_t)
+        launch(cfg, pot, work, st.occ, perm, i, None, None, None, de_k, acc_k,
+               ph=ph)
+        torch.cuda.synchronize()
+        got = work[color].view(torch.int32)
+        vs_plain = (got != own.view(torch.int32)).any(0).any(0)
+        vs_twin = (got != twin[color].view(torch.int32)).any(0).any(0)
+        ties = rec["margin"] <= NEAR_TIE
+        for what, differs in (("its plain version", vs_plain),
+                              ("the host-random twin", vs_twin)):
+            if bool((differs & ~ties).any()):
+                raise AssertionError(
+                    f"{workload} Philox form != {what} outside near ties, "
+                    f"color {color}: {int((differs & ~ties).sum())} cells")
+        k_de = float(de_k.double().sum())
+        if not bool(vs_plain.any()) and (
+                int(acc_k.sum()) != int(acc)
+                or abs(k_de - float(de)) > DE_REL * abs(float(de)) + DE_ABS):
+            raise AssertionError(f"{workload} Philox form color {color}: "
+                                 f"accepted {int(acc_k.sum())} vs {int(acc)}"
+                                 f", dE {k_de} vs plain {float(de)}")
+        same = ~vs_plain
+        if bool(same.any()):
+            worst = max(worst,
+                        float((de_k - rec["de_cell"]).abs()[same].max()))
+        n_diff += int(vs_plain.sum())
+        n_twin += int(vs_twin.sum())
+        n_ties += int(ties.sum())
+        work[color] = twin[color]
+        timing = (before, perm, i, draws, rec, key)
+    print(f"{workload} Philox form (ih_k {PHILOX_IH_K}), 8 colors at "
+          f"N = {cfg.n_atoms}: {n_diff} cells differ from its plain version "
+          f"and {n_twin} from the host-random twin fed the same draws, all "
+          f"near ties (near-tie cells {n_ties}); largest per-cell dE "
+          f"difference from the plain version {worst:.3e}")
+    return worst, timing
+
+
+def check_philox_small_run_against_cpu(mt, bench) -> None:
+    """A small 2D run through the Philox form equals the plain CPU path
+    under the same PhiloxRandoms, bit for bit."""
+    from mcjax_torch.ops.random import PhiloxRandoms
+    n, sweeps = SMALL_PHILOX["n"], SMALL_PHILOX["sweeps"]
+    cfg, pot, st = bench.build(n, 0.5, 2.0, 7, 16, device="cuda")
+    st_gpu, m_gpu = mt.run_sweeps(cfg, pot, st, sweeps,
+                                  PhiloxRandoms(PHILOX_SEED, "cuda"))
+    _, _, st_cpu = bench.build(n, 0.5, 2.0, 7, 16, device="cpu")
+    st_cpu, m_cpu = mt.run_sweeps(cfg, pot, st_cpu, sweeps,
+                                  PhiloxRandoms(PHILOX_SEED, "cpu"))
+    for name in ("pos", "occ"):
+        if not bitwise_equal(getattr(st_gpu, name).cpu(),
+                             getattr(st_cpu, name)):
+            raise AssertionError(f"Philox small run: GPU {name} != CPU")
+    for name in ("accepted", "proposed", "overflow"):
+        if not torch.equal(getattr(m_gpu, name).cpu(), getattr(m_cpu, name)):
+            raise AssertionError(f"Philox small run: GPU {name} != CPU")
+    print(f"Philox small run (N={n}, {sweeps} sweeps): GPU Philox kernels "
+          f"== CPU plain path under the same PhiloxRandoms, accepted "
+          f"{m_gpu.accepted.tolist()}")
+
+
+def check_resume(mt, bench) -> None:
+    """A resumed run equals an unbroken one on the card, bit for bit:
+    RESUME_SWEEPS sweeps with a new provider at the break against their
+    sum in one run, 2D hard disks and lj3d at 1M, under PhiloxRandoms
+    (the kernels' Philox forms) and TorchRandoms."""
+    from mcjax_torch.ops.random import PhiloxRandoms
+    first, second = RESUME_SWEEPS
+    for workload in ("hard-disk", "lj3d"):
+        ih_k = bench.DEFAULT_IH_K[workload]
+        makers = {"in-kernel": lambda: PhiloxRandoms(PHILOX_SEED, "cuda",
+                                                      ih_k),
+                  "host": lambda: mt.TorchRandoms(
+                      torch.Generator("cuda").manual_seed(5))}
+        for mode, make in makers.items():
+            cfg, pot, a, _ = bench.build_workload(workload, device="cuda")
+            _, _, b, _ = bench.build_workload(workload, device="cuda")
+            a, ma = mt.run_sweeps(cfg, pot, a, first + second, make())
+            b, mb1 = mt.run_sweeps(cfg, pot, b, first, make())
+            b, mb2 = mt.run_sweeps(cfg, pot, b, second, make())
+            torch.cuda.synchronize()
+            same = bitwise_equal(a.pos, b.pos) and bitwise_equal(a.occ, b.occ)
+            for f in ("delta_e", "accepted", "proposed", "overflow"):
+                same &= bitwise_equal(getattr(ma, f),
+                                      torch.cat([getattr(mb1, f),
+                                                 getattr(mb2, f)]))
+            if not same:
+                raise AssertionError(f"{workload} ({mode} draws): "
+                                     f"{first} + {second} sweeps != "
+                                     f"{first + second}")
+            print(f"{workload} ({mode} draws) at N = {cfg.n_atoms}: {first} "
+                  f"+ {second} sweeps, a new provider at the break, == "
+                  f"{first + second} sweeps bit for bit")
+
+
+def run_rng_gate() -> dict:
+    """The full statistical gate of the in-kernel draws on the card,
+    printed check by check; fails unless every check passes."""
+    from mcjax_torch.utils.rng_gate import run_gate
+    res = run_gate(ih_k=PHILOX_IH_K, device="cuda")
+    if not res["ok"]:
+        raise AssertionError(f"rng gate failed: {res['failures']}")
+    print(f"rng gate: {len(res['checks'])} checks passed (ih_k "
+          f"{res['ih_k']}, sizes {res['sizes']})")
+    return res
+
+
+def philox_int_ops(cfg, occ, colors, need_acc: bool, ih_k: int) -> int:
+    """INT32 operations of the in-kernel draws for the moves of ``colors``:
+    every move of a non-empty cell makes its Philox calls and transforms
+    its words (random.move_layout)."""
+    from mcjax_torch.ops.random import move_layout
+    per, calls = move_layout(cfg, need_acc, ih_k)
+    words = 1 + int(need_acc) + cfg.dim * per
+    cells_live = sum(int((occ[c] > 0).sum()) for c in colors)
+    return cfg.n_moves * cells_live * (calls * OPS_PER_PHILOX_CALL
+                                       + words * OPS_PER_PHILOX_WORD)
+
+
+def time_philox(mt, cuda_substep, cells, cfg, pot, st, inputs, energetic):
+    """Each Philox form's time by CUDA events (TIMED_LAUNCHES launches),
+    its host-random twin's on the same state and the same (materialized)
+    draws, the plain version's (materializing the draws, then the plain
+    sub-steps) and the bound. Returns (times, bounds)."""
+    from mcjax_torch.ops.random import PhiloxRandoms
+    times, bounds = {}, {}
+    before, perm, key, draws = inputs
+    work = before.clone()
+    counts = torch.zeros((cfg.n_colors, 2), dtype=torch.int64, device="cuda")
+    ph = cuda_substep.philox_args(cfg, key, False)
+    shape = cuda_substep.kernel_shape(cuda_substep.LIB, cfg.nmax,
+                                      cfg.cells_per_color, philox=True)
+    print(f"substep_philox shape at nmax {cfg.nmax}: {shape['registers']} "
+          f"registers, {shape['local_bytes']} bytes local, shared memory "
+          f"{shape['static_smem']} static + {shape['dynamic_smem']} dynamic "
+          f"bytes a block, {shape['warps_per_sm']} resident warps an SM; "
+          f"cooperative grid {shape['grid_blocks']} blocks")
+    times["substep_philox"] = cuda_ms(
+        lambda: cuda_substep.launch_philox_kernel(
+            cfg, pot, work, st.occ, perm, 0, cfg.n_colors, ph, counts),
+        TIMED_LAUNCHES)
+    work.copy_(before)
+    pick_us, disps = [d[0] for d in draws], [d[1] for d in draws]
+    times["substep_philox_twin"] = cuda_ms(lambda: cuda_substep.launch_kernel(
+        cfg, pot, work, st.occ, perm, 0, pick_us, disps, counts),
+        TIMED_LAUNCHES)
+
+    def plain_2d():
+        rnd = PhiloxRandoms(key.seed, "cuda", key.ih_k)
+        pos = before.clone()
+        for j in range(cfg.n_colors):
+            c = int(perm[j])
+            p_u, dsp, _ = rnd.move_draws(cfg, key.sweep, j, c, False)
+            pos[c] = cuda_substep.color_substep(cfg, pot, c, pos, st.occ,
+                                                p_u, dsp)[0]
+    times["substep_philox_plain"] = cuda_ms(plain_2d, PLAIN_RUNS)
+    bounds["substep_philox"] = substep_bound_ms(
+        cfg, st, (before, perm, draws), cells, draws_read=False,
+        int_ops=philox_int_ops(cfg, st.occ, [int(c) for c in perm], False, 0))
+    for workload, (ecfg, epot, est, timing) in energetic.items():
+        name = PHILOX_ROWS[workload]
+        e_before, e_perm, i, e_draws, rec, e_key = timing
+        launch = getattr(cuda_substep, ENERGETIC[workload]["launch"])
+        e_ph = cuda_substep.philox_args(ecfg, e_key, True)
+        de_map = torch.empty(ecfg.block_shape, dtype=torch.float32,
+                             device="cuda")
+        acc_map = torch.empty(ecfg.block_shape, dtype=torch.int32,
+                              device="cuda")
+        shape = cuda_substep.kernel_shape(
+            cuda_substep.kernel_library(ecfg, epot), ecfg.nmax, philox=True)
+        print(f"{name} shape at nmax {ecfg.nmax}: {shape['registers']} "
+              f"registers, {shape['local_bytes']} bytes local, shared "
+              f"memory {shape['static_smem']} static + "
+              f"{shape['dynamic_smem']} dynamic bytes a block, "
+              f"{shape['warps_per_sm']} resident warps an SM, "
+              f"{shape['staged_capacity']} staged slots a warp")
+        e_work = e_before.clone()
+        times[name] = cuda_ms(lambda: launch(
+            ecfg, epot, e_work, est.occ, e_perm, i, None, None, None, de_map,
+            acc_map, ph=e_ph), TIMED_LAUNCHES)
+        e_work.copy_(e_before)
+        times[name + "_twin"] = cuda_ms(lambda: launch(
+            ecfg, epot, e_work, est.occ, e_perm, i, *e_draws, de_map,
+            acc_map), TIMED_LAUNCHES)
+        plain = plain_substep(cuda_substep, epot)
+        color = int(e_perm[i])
+        rnd = PhiloxRandoms(e_key.seed, "cuda", e_key.ih_k)
+        times[name + "_plain"] = cuda_ms(lambda: plain(
+            ecfg, epot, color, e_before, est.occ,
+            *rnd.move_draws(ecfg, e_key.sweep, i, color, True)), PLAIN_RUNS)
+        ops = OPS_PER_MIX_TERM if workload == "ka3d" else OPS_PER_LJ_TERM
+        bounds[name] = energetic_substep_bound_ms(
+            ecfg, est, timing[:5], cells, ops, draws_read=False,
+            int_ops=philox_int_ops(ecfg, est.occ, [color], True, e_key.ih_k))
+    for name in bounds:
+        print(f"{name}: {times[name]:.6f} ms against its host-random twin "
+              f"{times[name + '_twin']:.6f} ms on the same state and draws "
+              f"({smi_line()})")
+    return times, bounds
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1572,6 +1961,7 @@ def main() -> int:
 
     libs = {"substep": cuda_substep.LIB,
             "substep_field": cuda_substep.LIB_FIELD,
+            "substep_philox": cuda_substep.LIB_PHILOX,
             "substep_lj": cuda_substep.LIB_LJ,
             "substep_mix": cuda_substep.LIB_MIX, "shift": cuda_shift.LIB}
     build_s = _build.build_all(list(libs.values()))
@@ -1603,8 +1993,14 @@ def main() -> int:
         mt, bench, cuda_substep, cfg, pot,
         dataclasses.replace(st, pos=st.pos.clone()))
     check_field_small_run_against_cpu(mt, bench)
+    # the in-kernel draws: the words, the 2D Philox form, a small run
+    check_philox_words(cuda_substep)
+    err["substep_philox"], philox_inputs = check_philox_disk_kernel(
+        cuda_substep, cfg, pot, dataclasses.replace(st, pos=st.pos.clone()))
+    check_philox_small_run_against_cpu(mt, bench)
     # 3D Lennard-Jones and the Kob-Andersen mixture
     energetic = {}
+    philox_energetic = {}
     field_timing = {}
     path_cfgs = {"hard-disk": cfg}
     for workload in ENERGETIC:
@@ -1625,6 +2021,10 @@ def main() -> int:
         field_timing[workload] = time_field_energetic(
             mt, bench, cuda_substep, cells, workload, ecfg, epot, est,
             einputs)
+        err[PHILOX_ROWS[workload]], ptiming = check_philox_energetic(
+            cuda_substep, workload, ecfg, epot,
+            dataclasses.replace(est, pos=est.pos.clone()))
+        philox_energetic[workload] = (ecfg, epot, est, ptiming)
         path_cfgs[workload] = ecfg
         del est, einputs
 
@@ -1691,6 +2091,9 @@ def main() -> int:
     sched_ms = cuda_ms(lambda: rnd.schedule(cfg, 0), TIMED_LAUNCHES)
     field_timing["hard-disk"] = time_field_disk(mt, bench, cuda_substep,
                                                 cells, cfg, pot, st, inputs)
+    p_times, p_bounds = time_philox(mt, cuda_substep, cells, cfg, pot, st,
+                                    philox_inputs, philox_energetic)
+    del philox_energetic, philox_inputs
 
     reset(libs)
 
@@ -1706,6 +2109,8 @@ def main() -> int:
     for f_times, f_bounds in field_timing.values():
         times.update(f_times)
         bounds.update(f_bounds)
+    times.update(p_times)
+    bounds.update(p_bounds)
 
     stats = cuda_substep.kernel_stats("cuda")
     main64 = run_main_path(mt, bench, libs, 64, stats)
@@ -1713,6 +2118,13 @@ def main() -> int:
     paths = {workload: run_energetic_main_path(
         mt, bench, libs, workload, cuda_substep.kernel_stats("cuda"))
         for workload in ENERGETIC}
+    # mcjax's bench defaults: the in-kernel (Philox) draws
+    philox64 = run_main_path(mt, bench, libs, 64, stats, rng="in-kernel")
+    philox8 = run_main_path(mt, bench, libs, 8, stats, rng="in-kernel")
+    philox_paths = {workload: run_energetic_main_path(
+        mt, bench, libs, workload, cuda_substep.kernel_stats("cuda"),
+        rng="in-kernel") for workload in ENERGETIC}
+    check_resume(mt, bench)
     henderson = check_henderson(mt, libs)
     npt_paths = {workload: run_npt_main_path(
         mt, bench, libs, workload, cuda_substep.kernel_stats("cuda"),
@@ -1727,6 +2139,20 @@ def main() -> int:
               f"moves/s, {res['ms_per_sweep']:.6f} ms/sweep ({smi}); "
               f"{res['overflow_cells']} of {res['cell_substeps']} cell "
               "sub-steps took the overflow pass")
+    for host, res in ((main64, philox64), (main8, philox8)):
+        print(f"hard disks, n_moves {res['n_moves']}, in-kernel draws: "
+              f"{res['value']:.6e} moves/s, {res['ms_per_sweep']:.6f} "
+              f"ms/sweep against {host['ms_per_sweep']:.6f} ms/sweep with "
+              f"host draws ({smi}); {res['overflow_cells']} overflow-pass "
+              "cell sub-steps")
+    for workload, res in philox_paths.items():
+        print(f"{workload}, n_moves {res['n_moves']}, in-kernel draws (ih_k "
+              f"{res['ih_k']}): {res['value']:.6e} moves/s, "
+              f"{res['ms_per_sweep']:.6f} ms/sweep against "
+              f"{paths[workload]['ms_per_sweep']:.6f} ms/sweep with host "
+              f"draws; acceptance {res['acceptance']:.6f} (host "
+              f"{paths[workload]['acceptance']:.6f}); energy anchor gap "
+              f"{res['anchor_rel_gap']:.3e} ({smi})")
     for workload, res in paths.items():
         print(f"{workload}, n_moves {res['n_moves']}: {res['value']:.6e} "
               f"moves/s, {res['ms_per_sweep']:.6f} ms/sweep, acceptance "
@@ -1802,7 +2228,10 @@ def main() -> int:
                "substep_ka3d_npt": "substep_mix.cu",
                "substep_field": "substep_field.cu",
                "substep_lj3d_field": "substep_lj.cu",
-               "substep_ka3d_field": "substep_mix.cu"}
+               "substep_ka3d_field": "substep_mix.cu",
+               "substep_philox": "substep_philox.cu",
+               "substep_lj_philox": "substep_lj.cu",
+               "substep_mix_philox": "substep_mix.cu"}
     replaces = {
         "substep": "mcjax/ops/pallas_ring.py:919, mcjax/ops/pallas_ring.py:495",
         "substep_lj3d": "mcjax/ops/pallas_sweep.py:1348, "
@@ -1825,6 +2254,13 @@ def main() -> int:
                               "mcjax/ops/pallas_sweep.py:878",
         "substep_ka3d_field": "mcjax/ops/pallas_sweep.py:1348, "
                               "mcjax/ops/pallas_sweep.py:878",
+        "substep_philox": "mcjax/ops/pallas_ring.py:919, "
+                          "mcjax/ops/pallas_ring.py:495",
+        "substep_lj_philox": "mcjax/ops/pallas_sweep.py:1348, "
+                             "mcjax/ops/pallas_sweep.py:878, "
+                             "mcjax/ops/pallas_ring.py:495",
+        "substep_mix_philox": "mcjax/ops/pallas_sweep.py:1348, "
+                              "mcjax/ops/pallas_sweep.py:878",
     }
     launches = {"substep": main64["launches"]["substep"],
                 "shift": main64["launches"]["shift"]}
@@ -1840,6 +2276,11 @@ def main() -> int:
         launches[w["substep"] + "_npt"] = res["launches"][w["lib"]]
     for workload, res in field_paths.items():
         launches[FIELD[workload]["substep"]] = res["field_launches"]
+    launches["substep_philox"] = philox64["launches"]["substep_philox"]
+    for workload, res in philox_paths.items():
+        launches[PHILOX_ROWS[workload]] = \
+            res["launches"][ENERGETIC[workload]["lib"]]
+    run_rng_gate()
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"mcjax_torch/csrc/{sources[name]}",

@@ -5,7 +5,10 @@ slabs, with the JAX package's state layout: 2D hard disks, 3D Lennard-Jones
 and 3D binary Lennard-Jones mixtures (Kob-Andersen) so far, in the NVT
 ensemble and in the NPT one (ln-V volume moves, ``run_npt``), and under
 external one-body fields (traps, gravity, slit walls:
-``mcjax_torch.models.fields``, ``mcjax_torch.ops.extfield``). Each color
+``mcjax_torch.models.fields``, ``mcjax_torch.ops.extfield``), with the
+draws generated inside the sub-step kernels from a keyed Philox stream
+(``PhiloxRandoms``, mcjax's in-kernel PRNG form) or made in memory
+(``TorchRandoms``). Each color
 sub-step and each grid shift runs as a hand-written CUDA kernel on the
 card; on the CPU the same entry points run plain PyTorch versions that
 match the JAX package (bit for bit for hard disks; for the energetic models
@@ -24,7 +27,7 @@ from mcjax_torch.models.potentials import HardSphere, LennardJones
 from mcjax_torch.ops.mixture import init_mixture_state, unbin_mixture
 from mcjax_torch.ops.npt import (NPTMetrics, NPTState, init_npt, npt_sweep,
                                  run_npt)
-from mcjax_torch.ops.random import RandomProvider, TorchRandoms
+from mcjax_torch.ops.random import PhiloxRandoms, RandomProvider, TorchRandoms
 from mcjax_torch.ops.sweep import (SweepMetrics, mc_sweep, run_sweeps,
                                    total_energy_cells)
 from mcjax_torch.utils.debug import StateInvariantError, validate_state
@@ -37,6 +40,7 @@ __all__ = [
     "LennardJones",
     "NPTMetrics",
     "NPTState",
+    "PhiloxRandoms",
     "RandomProvider",
     "SimConfig",
     "SimState",

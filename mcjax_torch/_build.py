@@ -48,8 +48,9 @@ class CudaLibrary:
     ``signatures`` maps each C entry point to its ctypes argument types.
     ``launches`` is a plain int that ``launch`` adds one to for every kernel
     launch, ``npt_launches`` one for every launch of a kernel's NPT form
-    among them and ``field_launches`` one for every launch of its field
-    form; callers reset all three to 0 to count the launches of one run.
+    among them, ``field_launches`` one for every launch of its field form
+    and ``philox_launches`` one for every launch of its Philox form;
+    callers reset all four to 0 to count the launches of one run.
     """
 
     def __init__(self, name: str, signatures: dict[str, list]):
@@ -58,6 +59,7 @@ class CudaLibrary:
         self.launches = 0
         self.npt_launches = 0
         self.field_launches = 0
+        self.philox_launches = 0
         self.build_log = ""
         self.build_seconds: float | None = None
         self._lib: ctypes.CDLL | None = None
@@ -103,16 +105,17 @@ class CudaLibrary:
         return self._lib
 
     def launch(self, fn: str, *args, npt: bool = False,
-               field: bool = False) -> None:
+               field: bool = False, philox: bool = False) -> None:
         """Call entry ``fn`` (which launches a kernel's NPT form if ``npt``,
-        its field form if ``field``); raise if the launch reported a CUDA
-        error."""
+        its field form if ``field``, its Philox form if ``philox``); raise
+        if the launch reported a CUDA error."""
         err = getattr(self.load(), fn)(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {err}")
         self.launches += 1
         self.npt_launches += npt
         self.field_launches += field
+        self.philox_launches += philox
 
 
 def build_all(libs: list[CudaLibrary]) -> float:

@@ -33,6 +33,17 @@ wall-axis coordinate scaled about 0 into the open slab. The sub-steps run
 the kernels' field forms; the frame origin moves on the device with the
 grid shift.
 
+The draws follow mcjax's bench defaults (``bench.py --in-kernel-rng``):
+``--in-kernel-rng``, the default, runs the sub-step kernels' Philox forms,
+which generate every move's draws in registers from the keyed stream of
+``mcjax_torch.ops.random.PhiloxRandoms``, with gaussian proposals the
+Irwin-Hall sum of ``--ih-k`` 16-bit halves (8 for lj3d and ka3d, 12
+otherwise, as mcjax's bench sets it); ``--host-rng`` draws them with
+PyTorch's generators into memory (``TorchRandoms``) for the kernels'
+host-random forms. An NPT or field run always takes host draws, and says
+so in ``rng_note``: NPT has no in-kernel form in mcjax, and the field
+forms' Philox draws are later work.
+
 Timing uses CUDA events around a timed run of ``--sweeps`` sweeps that
 follows a warm-up run of the same length.
 
@@ -44,12 +55,21 @@ follows a warm-up run of the same length.
                                 [--trap K] [--gravity G]
                                 [--species-gravity G0,G1]
                                 [--walls LO,HI[,DIAM...]] [--field-axis A]
+                                [--in-kernel-rng | --host-rng] [--ih-k K]
+                                [--no-rng-gate]
 
 Prints ONE JSON line: metric, value, unit, vs_baseline (against the
 reference's 2.25e4 trial moves/s, BASELINE.md), plus ms per sweep,
-overflow, acceptance and the device name; ka3d adds the A and B counts
-after the run. An NPT run adds the volume moves' acceptance over both
-runs, the final volume, scale and density, and the carried energy against
+overflow, acceptance, the draws (``rng``: "in-kernel" or "host", and
+``ih_k``), the device name and the torch and CUDA versions; ka3d adds the
+A and B counts after the run. A run with in-kernel draws also runs the
+statistical gate of those draws in the same process
+(``mcjax_torch.utils.rng_gate``, at its full sizes, as mcjax's bench
+records its ``rng_gate``) and adds its summary as ``rng_gate``; a run
+with host draws (``--host-rng``, NPT, a field) or ``--no-rng-gate``
+records "skipped", as mcjax's bench does without in-kernel draws. An NPT run
+adds the volume moves' acceptance over both runs, the final volume, scale
+and density, and the carried energy against
 the float64 cell total at the final scale. A field run adds the pair and
 field energies after the run (float64), the density of the slab between
 the walls, the frame origin, and the carried energy (the start's float64
@@ -77,10 +97,28 @@ from mcjax_torch.ops.extfield import (field_violations, run_field_sweeps,
 from mcjax_torch.ops.mixture import init_mixture_state, species_counts
 from mcjax_torch.ops.npt import (NPTMetrics, NPTState, VolumeHook, init_npt,
                                  run_npt)
-from mcjax_torch.ops.random import TorchRandoms
+from mcjax_torch.ops.random import PhiloxRandoms, TorchRandoms
 from mcjax_torch.ops.sweep import SweepMetrics, run_sweeps, total_energy_cells
 
 REFERENCE_MOVES_PER_S = 2.25e4  # BASELINE.md
+RNG_MODES = ("in-kernel", "host")
+# Irwin-Hall order of gaussian proposals: mcjax's bench sets 8 for its 3D
+# workloads and keeps the library default, 12, elsewhere.
+DEFAULT_IH_K = {"hard-disk": 12, "lj3d": 8, "ka3d": 8}
+HOST_ONLY_NOTE = {
+    "npt": "host draws: mcjax has no in-kernel-RNG NPT form",
+    "field": "host draws: the field forms take no in-kernel draws yet",
+}
+
+
+def make_randoms(rng: str, seed: int, device: torch.device, ih_k: int):
+    """The provider of a run's draws: ``PhiloxRandoms`` for the kernels'
+    in-kernel (Philox) forms, ``TorchRandoms`` for host draws."""
+    if rng == "in-kernel":
+        return PhiloxRandoms(seed, device, ih_k)
+    if rng == "host":
+        return TorchRandoms(torch.Generator(device).manual_seed(seed))
+    raise ValueError(f"rng must be one of {RNG_MODES}, got {rng!r}")
 
 
 def build(n_atoms: int, phi: float, cell_width_factor: float, nmax: int,
@@ -144,13 +182,14 @@ def build_ka3d(n_atoms: int, nmax: int, n_moves: int, seed: int = 0,
 
 
 def timed_run(cfg: SimConfig, pot: Potential, state: SimState, sweeps: int,
-              seed: int, label: str
+              seed: int, label: str, rng: str = "in-kernel", ih_k: int = 12
               ) -> tuple[dict, SimState, SweepMetrics, SweepMetrics]:
     """Warm-up run of ``sweeps`` sweeps, then a timed run of as many, on the
-    state's (CUDA) device. Returns (result dict, final state, warm-up
-    metrics, timed-run metrics)."""
+    state's (CUDA) device, with the draws of ``rng`` (``make_randoms``).
+    Returns (result dict, final state, warm-up metrics, timed-run
+    metrics)."""
     dev = state.pos.device
-    randoms = TorchRandoms(torch.Generator(dev).manual_seed(seed))
+    randoms = make_randoms(rng, seed, dev, ih_k)
     state, warm = run_sweeps(cfg, pot, state, sweeps, randoms)
     torch.cuda.synchronize(dev)
     start = torch.cuda.Event(enable_timing=True)
@@ -160,7 +199,9 @@ def timed_run(cfg: SimConfig, pot: Potential, state: SimState, sweeps: int,
     end.record()
     torch.cuda.synchronize(dev)
     seconds = start.elapsed_time(end) / 1e3
-    return rate_result(cfg, label, sweeps, seconds, state, m), state, warm, m
+    result = rate_result(cfg, label, sweeps, seconds, state, m)
+    result.update(rng=rng, ih_k=ih_k if rng == "in-kernel" else None)
+    return result, state, warm, m
 
 
 def rate_result(cfg: SimConfig, label: str, sweeps: int, seconds: float,
@@ -182,6 +223,8 @@ def rate_result(cfg: SimConfig, label: str, sweeps: int, seconds: float,
         "acceptance": accepted / max(proposed, 1),
         "overflow": bool(state.overflow),
         "device": torch.cuda.get_device_name(state.pos.device),
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
     }
 
 
@@ -211,6 +254,7 @@ def timed_npt_run(cfg: SimConfig, pot: Potential, state: SimState,
     torch.cuda.synchronize(dev)
     seconds = start.elapsed_time(end) / 1e3
     result = rate_result(cfg, label, sweeps, seconds, nst.sim, m.sweep)
+    result.update(rng="host", ih_k=None, rng_note=HOST_ONLY_NOTE["npt"])
     # both runs: sweep counts 0 to 2 sweeps - 1
     attempted = sum((s + 1) % volume_every == 0 for s in range(2 * sweeps))
     taken = int(warm.vol_accepted.sum()) + int(m.vol_accepted.sum())
@@ -233,22 +277,24 @@ def timed_npt_run(cfg: SimConfig, pot: Potential, state: SimState,
 def run_bench(n_atoms: int | None = None, phi: float = 0.5,
               wfac: float = 2.0, nmax: int | None = None,
               n_moves: int | None = None, sweeps: int | None = None,
-              seed: int = 0
+              seed: int = 0, rng: str = "in-kernel", ih_k: int | None = None
               ) -> tuple[dict, SimConfig, HardSphere, SimState, SweepMetrics,
                          SweepMetrics]:
     """The hard-disk benchmark on the GPU (warm-up, then ``sweeps`` timed;
-    ``build_workload``'s defaults where an argument is None).
+    ``build_workload``'s defaults where an argument is None; draws as
+    ``run_nvt``'s).
 
     Returns (result dict, cfg, pot, final state, warm-up metrics, timed-run
     metrics).
     """
     return run_nvt("hard-disk", n_atoms, nmax, n_moves, sweeps, seed, phi,
-                   wfac)
+                   wfac, rng, ih_k)
 
 
 def run_bench_lj3d(n_atoms: int | None = None, nmax: int | None = None,
                    n_moves: int | None = None, sweeps: int | None = None,
-                   seed: int = 0
+                   seed: int = 0, rng: str = "in-kernel",
+                   ih_k: int | None = None
                    ) -> tuple[dict, SimConfig, LennardJones, SimState,
                               SweepMetrics, SweepMetrics]:
     """The 3D LJ benchmark on the GPU (warm-up, then ``sweeps`` timed;
@@ -257,12 +303,14 @@ def run_bench_lj3d(n_atoms: int | None = None, nmax: int | None = None,
     Returns (result dict, cfg, pot, final state, warm-up metrics, timed-run
     metrics).
     """
-    return run_nvt("lj3d", n_atoms, nmax, n_moves, sweeps, seed)
+    return run_nvt("lj3d", n_atoms, nmax, n_moves, sweeps, seed, rng=rng,
+                   ih_k=ih_k)
 
 
 def run_bench_ka3d(n_atoms: int | None = None, nmax: int | None = None,
                    n_moves: int | None = None, sweeps: int | None = None,
-                   seed: int = 0
+                   seed: int = 0, rng: str = "in-kernel",
+                   ih_k: int | None = None
                    ) -> tuple[dict, SimConfig, LJMixture, SimState,
                               SweepMetrics, SweepMetrics]:
     """The Kob-Andersen benchmark on the GPU (warm-up, then ``sweeps``
@@ -272,24 +320,27 @@ def run_bench_ka3d(n_atoms: int | None = None, nmax: int | None = None,
     Returns (result dict, cfg, pot, final state, warm-up metrics, timed-run
     metrics).
     """
-    return run_nvt("ka3d", n_atoms, nmax, n_moves, sweeps, seed)
+    return run_nvt("ka3d", n_atoms, nmax, n_moves, sweeps, seed, rng=rng,
+                   ih_k=ih_k)
 
 
 def run_nvt(workload: str, n_atoms: int | None = None,
             nmax: int | None = None, n_moves: int | None = None,
             sweeps: int | None = None, seed: int = 0, phi: float = 0.5,
-            wfac: float = 2.0
+            wfac: float = 2.0, rng: str = "in-kernel",
+            ih_k: int | None = None
             ) -> tuple[dict, SimConfig, Potential, SimState, SweepMetrics,
                        SweepMetrics]:
     """A workload's NVT benchmark on the GPU (``timed_run``; the workload's
-    defaults where an argument is None); a mixture's result also counts
-    species A and B after the run."""
+    defaults where an argument is None, ``DEFAULT_IH_K`` for ``ih_k``),
+    with in-kernel (the default) or host draws; a mixture's result also
+    counts species A and B after the run."""
     dev = resolve_device(None)          # the GPU; raises without one
     cfg, pot, state, label = build_workload(workload, n_atoms, nmax, n_moves,
                                             seed, phi, wfac, dev)
-    result, state, warm, m = timed_run(cfg, pot, state,
-                                       sweeps or DEFAULT_SWEEPS[workload],
-                                       seed, label)
+    result, state, warm, m = timed_run(
+        cfg, pot, state, sweeps or DEFAULT_SWEEPS[workload], seed, label,
+        rng, ih_k or DEFAULT_IH_K[workload])
     count_species(result, cfg, pot, state)
     return result, cfg, pot, state, warm, m
 
@@ -456,6 +507,7 @@ def timed_field_run(cfg: SimConfig, pot: Potential, field, state: SimState,
     torch.cuda.synchronize(dev)
     seconds = start.elapsed_time(end) / 1e3
     result = rate_result(cfg, label, sweeps, seconds, state, m)
+    result.update(rng="host", ih_k=None, rng_note=HOST_ONLY_NOTE["field"])
     e_pair = float(total_energy_cells(cfg, pot, state.pos, state.occ, f64))
     e_field = float(total_field_energy_cells(cfg, field, state.pos,
                                              state.occ, origin, f64))
@@ -535,7 +587,21 @@ def main(argv: list[str] | None = None) -> None:
                          "(one, or one per species)")
     ap.add_argument("--field-axis", type=int, default=None,
                     help="axis of --gravity / --walls (default: the last)")
+    ap.add_argument("--in-kernel-rng", dest="rng", action="store_const",
+                    const="in-kernel", default="in-kernel",
+                    help="draws generated in the sub-step kernels (Philox; "
+                         "the default, as mcjax's bench)")
+    ap.add_argument("--host-rng", dest="rng", action="store_const",
+                    const="host", help="draws made on the device by "
+                                       "PyTorch's generators, in memory")
+    ap.add_argument("--ih-k", type=int, default=None,
+                    help="Irwin-Hall halves per gaussian component "
+                         "(8 lj3d and ka3d, 12 otherwise)")
+    ap.add_argument("--no-rng-gate", action="store_true",
+                    help="skip the in-process statistical gate of the "
+                         "in-kernel draws (rng_gate becomes 'skipped')")
     args = ap.parse_args(argv)
+    ih_k = args.ih_k or DEFAULT_IH_K[args.workload]
     dim = 2 if args.workload == "hard-disk" else 3
     field = field_from_args(args, dim, args.workload == "ka3d")
     if field is not None:
@@ -552,7 +618,13 @@ def main(argv: list[str] | None = None) -> None:
             args.wfac)
     else:
         result, *_ = run_nvt(args.workload, args.n, args.nmax, args.moves,
-                             args.sweeps, args.seed, args.phi, args.wfac)
+                             args.sweeps, args.seed, args.phi, args.wfac,
+                             args.rng, ih_k)
+    if args.no_rng_gate or result["rng"] != "in-kernel":
+        result["rng_gate"] = "skipped"
+    else:
+        from mcjax_torch.utils.rng_gate import run_gate
+        result["rng_gate"] = run_gate(ih_k=ih_k, quiet=True)
     print(json.dumps(result))
 
 

@@ -1,8 +1,8 @@
 // The 2D hard-disk sub-step kernel (see substep.cu for its design): the
 // kernel template, its launch shape and its launch, for every form (NVT,
-// NPT, field). substep.cu instantiates the NVT and NPT forms and
-// substep_field.cu the field form, so that nvcc builds the two translation
-// units side by side.
+// NPT, field, Philox). substep.cu instantiates the NVT and NPT forms,
+// substep_field.cu the field form and substep_philox.cu the Philox form,
+// so that nvcc builds the three translation units side by side.
 
 #pragma once
 
@@ -11,6 +11,7 @@
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -21,6 +22,10 @@ constexpr int kBlocksPerSm = 8;    // launch bounds: at most 64 registers
 // The field form's launch bounds: the 6 blocks its shared memory lets an
 // SM hold (at nmax 7), so up to 80 registers at no loss of occupancy.
 constexpr int kBlocksPerSmField = 6;
+// The Philox form's: 7 blocks an SM (up to 72 registers, for the Philox
+// state), which still hold the 800 blocks of 102,400 cells a color at once
+// on 132 SMs; at 8 (64 registers) it spilled 72 bytes a thread.
+constexpr int kBlocksPerSmPhilox = 7;
 constexpr int kFrozenCap = 16;     // kept frozen slots staged a thread
 constexpr int kAhead = 4;          // moves whose draws are in flight
 constexpr int kMaxSubsteps = 4;    // the colors of a 2D sweep
@@ -45,9 +50,9 @@ struct FieldDraws {
 };
 
 // Floats a move in the draw ring: (pick_u, dx, dy), and acc_u in the
-// field form.
-template <bool kField>
-constexpr int kRingFloats = kField ? 4 : 3;
+// field form; the Philox form has no ring.
+template <bool kField, bool kPhilox>
+constexpr int kRingFloats = kPhilox ? 0 : (kField ? 4 : 3);
 
 // The field's verdict on a move (field form): false if new is forbidden
 // or, for a field with energy, fails the Metropolis test with uniform ua;
@@ -178,8 +183,9 @@ __device__ __forceinline__ int visit_frozen(const float* pos,
 // overflow pass). Kept apart from the kernel's move loop, which stays
 // lean in registers; the decisions are the same. The field form passes
 // the block's copy of the field (fp, in shared memory) and its scalars;
-// the other forms pass nullptr and zeros.
-template <int NMAX, bool kScale, bool kField>
+// the other forms pass nullptr and zeros. The Philox form generates each
+// move's draws from ph for cell gcell of sub-step `sub`.
+template <int NMAX, bool kScale, bool kField, bool kPhilox>
 __device__ __noinline__ unsigned overflow_moves(const float* pos,
                                                 const int* __restrict__ occ,
                                                 int cell, int color,
@@ -191,16 +197,26 @@ __device__ __noinline__ unsigned overflow_moves(const float* pos,
                                                 float neg_beta,
                                                 const float* acc_u,
                                                 float org0, float org1,
-                                                float* de_sum) {
+                                                float* de_sum,
+                                                mcjax_philox::Args ph,
+                                                uint32_t gcell, int sub) {
   const Cell c = make_cell(cell, color, g);
   const int P = g.H * g.W;
   const float occ_f = static_cast<float>(my_occ);
   unsigned accepted = 0;
   for (int m = 0; m < g.n_moves; ++m) {
     const size_t at = static_cast<size_t>(m) * P + cell;
-    const float u = __ldg(pick_u + at);
-    const float dx = __ldg(disp + at + static_cast<size_t>(m) * P);
-    const float dy = __ldg(disp + at + static_cast<size_t>(m + 1) * P);
+    float u, dx, dy;
+    if constexpr (kPhilox) {
+      float dd[2];
+      mcjax_philox::move_draws<2, false>(ph, gcell, sub, m, &u, nullptr, dd);
+      dx = dd[0];
+      dy = dd[1];
+    } else {
+      u = __ldg(pick_u + at);
+      dx = __ldg(disp + at + static_cast<size_t>(m) * P);
+      dy = __ldg(disp + at + static_cast<size_t>(m + 1) * P);
+    }
     const int p = min(static_cast<int>(floorf(__fmul_rn(u, occ_f))),
                       my_occ - 1);
     const float2 old = mine[p * kThreads];
@@ -235,20 +251,24 @@ __device__ __noinline__ unsigned overflow_moves(const float* pos,
 }
 
 // The NPT form reads s^2 from s2p; the field form reads its field, origin
-// and acceptance uniforms from f (the other forms ignore it).
-template <int NMAX, bool kScale, bool kField>
-__global__ void __launch_bounds__(kThreads,
-                                  kField ? kBlocksPerSmField : kBlocksPerSm)
+// and acceptance uniforms from f; the Philox form generates its draws from
+// ph and reads no draws (the other forms ignore what is not theirs).
+template <int NMAX, bool kScale, bool kField, bool kPhilox>
+__global__ void __launch_bounds__(
+    kThreads, kField ? kBlocksPerSmField
+                     : (kPhilox ? kBlocksPerSmPhilox : kBlocksPerSm))
 substeps_kernel(float* pos, const int* __restrict__ occ,
                 const int* __restrict__ perm, int start, int n, Draws draws,
                 unsigned long long* __restrict__ counts,
                 unsigned long long* __restrict__ stats, Geometry g,
-                const float* __restrict__ s2p, FieldDraws f) {
+                const float* __restrict__ s2p, FieldDraws f,
+                mcjax_philox::Args ph) {
   // Slot s of a thread at slots[s * kThreads + threadIdx.x], NMAX +
   // kFrozenCap rows: the own slots, then the kept frozen slots; after them
-  // the ring of draws, kAhead + 1 moves of (pick_u, dx, dy[, acc_u]); in
-  // the field form then the block's copy of the field.
-  constexpr int kRing = kRingFloats<kField>;
+  // the ring of draws, kAhead + 1 moves of (pick_u, dx, dy[, acc_u]) (none
+  // in the Philox form); in the field form then the block's copy of the
+  // field.
+  constexpr int kRing = kRingFloats<kField, kPhilox>;
   extern __shared__ float2 slots[];
   __shared__ unsigned long long block_sum[2];
   const int tid = threadIdx.x;
@@ -293,24 +313,28 @@ substeps_kernel(float* pos, const int* __restrict__ occ,
         continue;
       }
       proposed += g.n_moves;
+      const int sub = start + j;
+      const uint32_t gcell = static_cast<uint32_t>(color * P + cell);
       // The draws of the first kAhead moves go in flight first.
       const int last = g.n_moves - 1;
       const float* pu = pick_u + cell;
       const float* dp = disp + cell;
       const float* au = acc_u + cell;
+      if constexpr (!kPhilox) {
 #pragma unroll
-      for (int k = 0; k < kAhead; ++k) {
-        const unsigned at = min(k, last) * P;
-        __pipeline_memcpy_async(ring + kRing * k * kThreads, pu + at, 4);
-        __pipeline_memcpy_async(ring + (kRing * k + 1) * kThreads,
-                                dp + 2 * at, 4);
-        __pipeline_memcpy_async(ring + (kRing * k + 2) * kThreads,
-                                dp + 2 * at + P, 4);
-        if (field_energy) {
-          __pipeline_memcpy_async(ring + (kRing * k + 3) * kThreads, au + at,
-                                  4);
+        for (int k = 0; k < kAhead; ++k) {
+          const unsigned at = min(k, last) * P;
+          __pipeline_memcpy_async(ring + kRing * k * kThreads, pu + at, 4);
+          __pipeline_memcpy_async(ring + (kRing * k + 1) * kThreads,
+                                  dp + 2 * at, 4);
+          __pipeline_memcpy_async(ring + (kRing * k + 2) * kThreads,
+                                  dp + 2 * at + P, 4);
+          if (field_energy) {
+            __pipeline_memcpy_async(ring + (kRing * k + 3) * kThreads,
+                                    au + at, 4);
+          }
+          __pipeline_commit();
         }
-        __pipeline_commit();
       }
       float* own = pos + color * 2 * plane + cell;
       for (int s = 0; s < my_occ; ++s) {
@@ -325,10 +349,10 @@ substeps_kernel(float* pos, const int* __restrict__ occ,
           });
       if (kept > kFrozenCap) {
         atomicAdd(&stats[0], 1ull);
-        __pipeline_wait_prior(0);
-        accepted += overflow_moves<NMAX, kScale, kField>(
+        if constexpr (!kPhilox) __pipeline_wait_prior(0);
+        accepted += overflow_moves<NMAX, kScale, kField, kPhilox>(
             pos, occ, cell, color, my_occ, mine, pick_u, disp, g, s2, fp,
-            f.neg_beta, acc_u, org0, org1, &de_sum);
+            f.neg_beta, acc_u, org0, org1, &de_sum, ph, gcell, sub);
       } else {
         const float occ_f = static_cast<float>(my_occ);
         const int n_test = my_occ + kept;
@@ -337,23 +361,35 @@ substeps_kernel(float* pos, const int* __restrict__ occ,
         unsigned next = min(kAhead, last) * P;
         int r_slot = 0, w_slot = kAhead;
         for (int m = 0; m < g.n_moves; ++m) {
-          // Move m's draws have arrived; move m + kAhead's go in flight
-          // into the slot that move m - 1 read.
-          __pipeline_wait_prior(kAhead - 1);
-          const float* r = ring + kRing * r_slot * kThreads;
-          const float u = r[0], dx = r[kThreads], dy = r[2 * kThreads];
-          const float ua = kField ? r[(kRing - 1) * kThreads] : 0.f;
-          float* w = ring + kRing * w_slot * kThreads;
-          __pipeline_memcpy_async(w, pu + next, 4);
-          __pipeline_memcpy_async(w + kThreads, dp + 2 * next, 4);
-          __pipeline_memcpy_async(w + 2 * kThreads, dp + 2 * next + P, 4);
-          if (field_energy) {
-            __pipeline_memcpy_async(w + 3 * kThreads, au + next, 4);
+          float u, dx, dy, ua = 0.f;
+          if constexpr (kPhilox) {
+            // The move's one Philox call (uniform proposals), in registers.
+            float dd[2];
+            mcjax_philox::move_draws<2, false>(ph, gcell, sub, m, &u,
+                                               nullptr, dd);
+            dx = dd[0];
+            dy = dd[1];
+          } else {
+            // Move m's draws have arrived; move m + kAhead's go in flight
+            // into the slot that move m - 1 read.
+            __pipeline_wait_prior(kAhead - 1);
+            const float* r = ring + kRing * r_slot * kThreads;
+            u = r[0];
+            dx = r[kThreads];
+            dy = r[2 * kThreads];
+            if constexpr (kField) ua = r[(kRing - 1) * kThreads];
+            float* w = ring + kRing * w_slot * kThreads;
+            __pipeline_memcpy_async(w, pu + next, 4);
+            __pipeline_memcpy_async(w + kThreads, dp + 2 * next, 4);
+            __pipeline_memcpy_async(w + 2 * kThreads, dp + 2 * next + P, 4);
+            if (field_energy) {
+              __pipeline_memcpy_async(w + 3 * kThreads, au + next, 4);
+            }
+            __pipeline_commit();
+            if (m + kAhead < last) next += P;
+            r_slot = r_slot == kAhead ? 0 : r_slot + 1;
+            w_slot = w_slot == kAhead ? 0 : w_slot + 1;
           }
-          __pipeline_commit();
-          if (m + kAhead < last) next += P;
-          r_slot = r_slot == kAhead ? 0 : r_slot + 1;
-          w_slot = w_slot == kAhead ? 0 : w_slot + 1;
           const int p = min(static_cast<int>(floorf(__fmul_rn(u, occ_f))),
                             my_occ - 1);
           const float2 old = mine[p * kThreads];
@@ -389,7 +425,9 @@ substeps_kernel(float* pos, const int* __restrict__ occ,
           }
         }
       }
-      __pipeline_wait_prior(0);  // the ring is free for the next cell
+      if constexpr (!kPhilox) {
+        __pipeline_wait_prior(0);  // the ring is free for the next cell
+      }
       for (int s = 0; s < my_occ; ++s) {
         const float2 o = mine[s * kThreads];
         own[s * P] = o.x;
@@ -423,7 +461,7 @@ struct Shape {
   int local_bytes = 0;
 };
 
-template <int NMAX, bool kScale, bool kField>
+template <int NMAX, bool kScale, bool kField, bool kPhilox = false>
 int shape_for(Shape* out) {
   static Shape cache;
   static int cache_dev = -1;
@@ -435,19 +473,21 @@ int shape_for(Shape* out) {
     return 0;
   }
   Shape s;
-  s.smem = ((NMAX + kFrozenCap) * 2 + kRingFloats<kField> * (kAhead + 1)) *
+  s.smem = ((NMAX + kFrozenCap) * 2 +
+            kRingFloats<kField, kPhilox> * (kAhead + 1)) *
                kThreads * static_cast<int>(sizeof(float)) +
            (kField ? static_cast<int>(sizeof(mcjax_field::Params)) : 0);
-  err = cudaFuncSetAttribute(substeps_kernel<NMAX, kScale, kField>,
+  err = cudaFuncSetAttribute(substeps_kernel<NMAX, kScale, kField, kPhilox>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              static_cast<int>(cudaSharedmemCarveoutMaxShared));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, substeps_kernel<NMAX, kScale, kField>);
+  err = cudaFuncGetAttributes(&fa,
+                              substeps_kernel<NMAX, kScale, kField, kPhilox>);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &s.blocks_per_sm, substeps_kernel<NMAX, kScale, kField>, kThreads,
-      s.smem);
+      &s.blocks_per_sm, substeps_kernel<NMAX, kScale, kField, kPhilox>,
+      kThreads, s.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -465,33 +505,37 @@ int grid_blocks(const Shape& s, int cells) {
   return min(s.blocks_per_sm * s.sms, (cells + kThreads - 1) / kThreads);
 }
 
-template <int NMAX, bool kScale, bool kField>
+template <int NMAX, bool kScale, bool kField, bool kPhilox = false>
 int launch(float* pos, const int* occ, const int* perm, int start, int n,
            const Draws& draws, unsigned long long* counts,
            unsigned long long* stats, const Geometry& g, const float* s2,
-           const FieldDraws& field, cudaStream_t stream) {
+           const FieldDraws& field, cudaStream_t stream,
+           const mcjax_philox::Args& philox = mcjax_philox::Args{}) {
   Shape s;
-  const int err = shape_for<NMAX, kScale, kField>(&s);
+  const int err = shape_for<NMAX, kScale, kField, kPhilox>(&s);
   if (err != 0) return err;
   const int blocks = grid_blocks(s, g.H * g.W);
   if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   Draws d = draws;
   Geometry geo = g;
   FieldDraws f = field;
-  void* args[] = {&pos, &occ,    &perm,  &start, &n,  &d,
-                  &counts, &stats, &geo,   &s2,    &f};
+  mcjax_philox::Args ph = philox;
+  void* args[] = {&pos,   &occ,  &perm, &start, &n,  &d,
+                  &counts, &stats, &geo, &s2,    &f,  &ph};
   // A launch the runtime refuses returns its error; nothing falls back.
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(substeps_kernel<NMAX, kScale, kField>),
+      reinterpret_cast<const void*>(
+          substeps_kernel<NMAX, kScale, kField, kPhilox>),
       dim3(blocks),
       dim3(kThreads), args, static_cast<size_t>(s.smem), stream));
 }
 
 // out[0..6] of a shape entry (mcjax_substep_2d_shape,
-// mcjax_substep_2d_field_shape): registers a thread, static and dynamic
-// shared memory a block (bytes), local memory a thread (bytes), resident
-// warps an SM, frozen slots staged a thread, and the blocks of the
-// cooperative grid for `cells` cells a color.
+// mcjax_substep_2d_field_shape, mcjax_substep_2d_philox_shape):
+// registers a thread, static and dynamic shared memory a block (bytes),
+// local memory a thread (bytes), resident warps an SM, frozen slots staged
+// a thread, and the blocks of the cooperative grid for `cells` cells a
+// color.
 void write_shape(const Shape& s, int cells, void* out) {
   int* o = static_cast<int*>(out);
   o[0] = s.regs;

@@ -49,6 +49,19 @@ the 2D hard-core kernel energetic). The field form never combines with the
 NPT form: the JAX package has no NPT run under a field. The 2D kernel's
 field form is built from ``csrc/substep_field.cu`` into a library of its
 own (``LIB_FIELD``), beside ``csrc/substep.cu``'s NVT and NPT forms.
+
+Each kernel has a Philox form too (mcjax's ``in_kernel_rng``,
+``mcjax/ops/pallas_sweep.py:226-350``): ``substeps`` given a
+``PhiloxKey`` instead of materialized draws launches it, and the kernel
+generates every move's draws in registers from the key (``csrc/
+philox.cuh``, the stream of ``mcjax_torch.ops.random.PhiloxRandoms``),
+reading no random input. The 2D Philox form is built from
+``csrc/substep_philox.cu`` into ``LIB_PHILOX``; the energetic kernels'
+sit in their own libraries. On the CPU a key is materialized by
+``PhiloxRandoms`` and the plain sub-step runs: that is the Philox forms'
+plain version. The Philox form takes neither a field (later work,
+ROADMAP B3) nor an NPT scale (the JAX package has no such form); on CUDA
+``substeps`` raises for those rather than materialize the draws.
 """
 
 from __future__ import annotations
@@ -69,6 +82,9 @@ from mcjax_torch.models.mixtures import LJMixture, _blend
 from mcjax_torch.models.potentials import (HardSphere, LennardJones, Potential,
                                            fma_f32, pair_interaction)
 from mcjax_torch.ops import cells
+from mcjax_torch.ops.random import (MASK32, PhiloxKey, PhiloxRandoms,
+                                    irwin_hall_constants, move_layout,
+                                    philox4x32, seed_words)
 
 # Largest cell capacity each kernel is instantiated for: the disk kernel
 # stages a cell's own slots in a thread's shared memory, the LJ kernel one
@@ -119,17 +135,79 @@ LIB_FIELD = CudaLibrary("substep_field", {
                                      ctypes.c_void_p],
 })
 
+# The 2D kernel's Philox form (csrc/substep_philox.cu), with the stream's
+# words for given counters (mcjax_philox_words).
+LIB_PHILOX = CudaLibrary("substep_philox", {
+    "mcjax_substep_2d_philox": [*_ARGS_2D[:3], ctypes.c_int, ctypes.c_int,
+                                *_ARGS_2D[7:], _P, _S],
+    "mcjax_substep_2d_philox_shape": [ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p],
+    "mcjax_philox_words": [_P, ctypes.c_uint32, ctypes.c_uint32,
+                           ctypes.c_longlong, _P, _S],
+})
+
+# The energetic kernels' Philox forms: their arguments without the three
+# draw pointers, then the stream (PhiloxArgs).
+_ARGS_LJ_PHILOX = [*_ARGS_LJ[:4], *_ARGS_LJ[7:]]
+_ARGS_MIX_PHILOX = [*_ARGS_MIX[:4], *_ARGS_MIX[7:]]
+
 LIB_LJ = CudaLibrary("substep_lj", {
     "mcjax_substep_lj3d": [*_ARGS_LJ, _P, _S],
     "mcjax_substep_lj3d_field": [*_ARGS_LJ, _P, _P, _S],
+    "mcjax_substep_lj3d_philox": [*_ARGS_LJ_PHILOX, _P, _S],
     "mcjax_substep_lj3d_shape": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 })
 
 LIB_MIX = CudaLibrary("substep_mix", {
     "mcjax_substep_mix3d": [*_ARGS_MIX, _P, _S],
     "mcjax_substep_mix3d_field": [*_ARGS_MIX, _P, _P, _S],
+    "mcjax_substep_mix3d_philox": [*_ARGS_MIX_PHILOX, _P, _S],
     "mcjax_substep_mix3d_shape": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 })
+
+
+class PhiloxArgs(ctypes.Structure):
+    """csrc/philox.cuh ``mcjax_philox::Args``: a Philox form's stream."""
+    _fields_ = [("k0", ctypes.c_uint32), ("k1", ctypes.c_uint32),
+                ("sweep", ctypes.c_uint32), ("ih_k", ctypes.c_int),
+                ("step", ctypes.c_float), ("c1", ctypes.c_float),
+                ("c0", ctypes.c_float), ("calls", ctypes.c_int)]
+
+
+def philox_args(cfg: SimConfig, key: PhiloxKey, need_acc: bool
+                ) -> PhiloxArgs:
+    """The Philox form's ``PhiloxArgs`` for the sweep of ``key``: the seed
+    words, the sweep, the proposal's constants (ih_k 0 for uniform
+    proposals) and the calls a move, as ``PhiloxRandoms`` lays them out."""
+    k0, k1 = seed_words(key.seed)
+    _, calls = move_layout(cfg, need_acc, key.ih_k)
+    if cfg.proposal == "uniform":
+        return PhiloxArgs(k0, k1, key.sweep & MASK32, 0, cfg.step_size, 0.0,
+                          0.0, calls)
+    c1, c0 = irwin_hall_constants(cfg.step_size, key.ih_k)
+    return PhiloxArgs(k0, k1, key.sweep & MASK32, key.ih_k, 0.0, c1, c0,
+                      calls)
+
+
+def philox_words(ctr: torch.Tensor, key: tuple[int, int]) -> torch.Tensor:
+    """Philox4x32-10 of every counter: ``ctr`` int64 [4, n] of 32-bit
+    words, the output likewise. On a CUDA tensor one launch of
+    ``csrc/philox.cuh``'s generator (``mcjax_philox_words``); on the CPU
+    the plain version, ``random.philox4x32``."""
+    if ctr.dtype != torch.int64 or ctr.dim() != 2 or ctr.shape[0] != 4:
+        raise ValueError(f"ctr: want int64 [4, n], got {ctr.dtype} "
+                         f"{tuple(ctr.shape)}")
+    if ctr.device.type == "cpu":
+        return philox4x32(ctr, key)
+    if ctr.device.type != "cuda":
+        raise ValueError(f"no Philox generator for device {ctr.device}")
+    c32 = (ctr & MASK32).to(torch.int32).contiguous()
+    out = torch.empty_like(c32)
+    k0, k1 = (v & MASK32 for v in key)
+    LIB_PHILOX.launch("mcjax_philox_words", c32.data_ptr(), k0, k1,
+                      ctr.shape[1], out.data_ptr(),
+                      torch.cuda.current_stream(ctr.device).cuda_stream)
+    return out.to(torch.int64) & MASK32
 
 # Exact culling of frozen slots in the sub-step kernels. A frozen slot is
 # staged only if its box distance to the own cell, the cell grown by
@@ -300,9 +378,11 @@ def kernel_stats(device: torch.device) -> torch.Tensor:
 
 
 def kernel_shape(lib: CudaLibrary, nmax: int, cells: int = 0,
-                 scaled: bool = False, field: bool = False) -> dict:
+                 scaled: bool = False, field: bool = False,
+                 philox: bool = False) -> dict:
     """The launch shape of a sub-step kernel at ``nmax`` on the current
-    device (its NPT form if ``scaled``, its field form if ``field``), from
+    device (its NPT form if ``scaled``, its field form if ``field``, its
+    Philox form if ``philox``), from
     the CUDA runtime: registers a thread, static and dynamic shared memory
     a block (bytes), local memory a thread (bytes), resident warps an SM
     and the staged frozen slots a warp (energetic kernels) or a thread
@@ -310,8 +390,12 @@ def kernel_shape(lib: CudaLibrary, nmax: int, cells: int = 0,
     ``cells`` cells a color."""
     keys = ["registers", "static_smem", "dynamic_smem", "local_bytes",
             "warps_per_sm", "staged_capacity"]
-    form = 2 if field else int(scaled)
-    if lib is LIB and field:
+    form = 3 if philox else (2 if field else int(scaled))
+    if lib is LIB and philox:
+        lib, fn, args = LIB_PHILOX, "mcjax_substep_2d_philox_shape", (nmax,
+                                                                     cells)
+        keys.append("grid_blocks")
+    elif lib is LIB and field:
         lib, fn, args = LIB_FIELD, "mcjax_substep_2d_field_shape", (nmax,
                                                                    cells)
         keys.append("grid_blocks")
@@ -554,13 +638,19 @@ Draw = tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]
 
 
 def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
-             occ: torch.Tensor, perm: torch.Tensor, draws: list[Draw],
-             start: int = 0, scale: torch.Tensor | float | None = None,
+             occ: torch.Tensor, perm: torch.Tensor,
+             draws: list[Draw] | PhiloxKey, start: int = 0,
+             scale: torch.Tensor | float | None = None,
              field=None, origin: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sub-steps [start, start + n) of a sweep, n = len(draws): sub-step j
     works on color perm[j] with draws[j - start] = (pick_u, disp, acc_u);
-    updates ``pos`` IN PLACE.
+    updates ``pos`` IN PLACE. ``draws`` may instead be a ``PhiloxKey``:
+    then the sub-steps [start, n_colors) take the keyed stream's draws,
+    generated in the kernels' Philox forms on CUDA and materialized by
+    ``PhiloxRandoms`` for the plain version on the CPU (sub-step j's cells
+    keyed by color perm[j]). On CUDA a key with a ``field`` or a ``scale``
+    raises NotImplementedError: no Philox form covers them.
 
     In place is safe: a sub-step writes only its own color block and reads
     the others, and checkerboard neighbors are always other colors. Returns
@@ -583,7 +673,8 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
     bs = cfg.block_shape
     mixture = getattr(pot, "is_mixture", False)
     planes = cfg.dim + 1 if mixture else cfg.dim
-    n = len(draws)
+    key = draws if isinstance(draws, PhiloxKey) else None
+    n = cfg.n_colors - start if key is not None else len(draws)
     need_acc = pot.has_energy or (field is not None and field.has_energy)
     if n < 1 or start < 0 or start + n > cfg.n_colors:
         raise ValueError(f"sub-steps [{start}, {start + n}) outside "
@@ -593,7 +684,7 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
         "occ": (occ, torch.int32, (cfg.n_colors, *bs)),
         "perm": (perm, torch.int32, (cfg.n_colors,)),
     }
-    for j, (pick_u, disp, acc_u) in enumerate(draws):
+    for j, (pick_u, disp, acc_u) in enumerate(draws if key is None else []):
         want[f"pick_u[{j}]"] = (pick_u, torch.float32, (cfg.n_moves, *bs))
         want[f"disp[{j}]"] = (disp, torch.float32,
                               (cfg.n_moves, cfg.dim, *bs))
@@ -616,6 +707,11 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
     check_tensors(pos.device, want)
     dev = pos.device
     if dev.type == "cpu":
+        if key is not None:
+            rnd = PhiloxRandoms(key.seed, dev, key.ih_k)
+            draws = [rnd.move_draws(cfg, key.sweep, start + j,
+                                    int(perm[start + j]), need_acc)
+                     for j in range(n)]
         if mixture:
             # ops.mixture builds on this module, so it is imported here
             from mcjax_torch.ops.mixture import color_substep_mixture
@@ -634,16 +730,33 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
     lib = kernel_library(cfg, pot)
     if dev.type != "cuda":
         raise ValueError(f"no sub-step for device {dev}")
+    ph = None
+    if key is not None:
+        if field is not None:
+            raise NotImplementedError(
+                "no Philox form of the sub-step kernels takes an external "
+                "field yet (ROADMAP B3): run a field with materialized draws "
+                "(TorchRandoms)")
+        if scale is not None:
+            raise NotImplementedError(
+                "no Philox form of the sub-step kernels takes an NPT box "
+                "scale (the JAX package has no in-kernel-RNG NPT run): run "
+                "NPT with materialized draws (TorchRandoms)")
+        ph = philox_args(cfg, key, need_acc)
+        draws = [(None, None, None)] * n
     s2 = None if scale is None else scale_squared(scale, torch.float32, dev)
     fk = None if field is None else \
         FieldKernel(field_params(field, cfg.dim, lib is LIB_MIX), origin)
     if lib is LIB:
         counts = torch.zeros((n, 2), dtype=torch.int64, device=dev)
-        if fk is None:
+        de = torch.zeros(n, dtype=torch.float32, device=dev)
+        if ph is not None:
+            launch_philox_kernel(cfg, pot, pos, occ, perm, start, n, ph,
+                                 counts)
+        elif fk is None:
             launch_kernel(cfg, pot, pos, occ, perm, start,
                           [d[0] for d in draws], [d[1] for d in draws],
                           counts, s2)
-            de = torch.zeros(n, dtype=torch.float32, device=dev)
         else:
             de_map = torch.zeros((n, *bs), dtype=torch.float32, device=dev)
             launch_field_kernel(cfg, pot, pos, occ, perm, start, draws,
@@ -655,7 +768,7 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
     launch = launch_lj_kernel if lib is LIB_LJ else launch_mix_kernel
     for j, (pick_u, disp, acc_u) in enumerate(draws):
         launch(cfg, pot, pos, occ, perm, start + j, pick_u, disp, acc_u,
-               de_map[j], acc_map[j], s2, fk)
+               de_map[j], acc_map[j], s2, fk, ph)
     color_occ = occ.index_select(0, perm[start:start + n])
     proposed = cfg.n_moves * (color_occ > 0).flatten(1).sum(1)
     return (de_map.flatten(1).sum(1),
@@ -720,6 +833,25 @@ def launch_kernel(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
         npt=s2 is not None)
 
 
+def launch_philox_kernel(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
+                         occ: torch.Tensor, perm: torch.Tensor, start: int,
+                         n: int, ph: PhiloxArgs, counts: torch.Tensor
+                         ) -> None:
+    """One cooperative launch of the 2D disk kernel's Philox form:
+    ``launch_kernel`` with the draws of sub-steps [start, start + n)
+    generated in the kernel from ``ph`` (``philox_args``)."""
+    h, w = cfg.block_shape
+    LIB_PHILOX.launch(
+        "mcjax_substep_2d_philox",
+        pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), start, n,
+        counts.data_ptr(), kernel_state(pos.device).data_ptr(),
+        h, w, cfg.nmax, cfg.n_moves,
+        cfg.cell_width, cfg.box_length / 2.0, cfg.box_length,
+        pot.diameter * pot.diameter, *cull_constants(cfg, pot.diameter),
+        ctypes.addressof(ph),
+        torch.cuda.current_stream(pos.device).cuda_stream, philox=True)
+
+
 def launch_field_kernel(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
                         occ: torch.Tensor, perm: torch.Tensor, start: int,
                         draws: list[Draw], counts: torch.Tensor,
@@ -752,23 +884,30 @@ def launch_lj_kernel(cfg: SimConfig, pot: LennardJones, pos: torch.Tensor,
                      pick_u: torch.Tensor, disp: torch.Tensor,
                      acc_u: torch.Tensor, de_map: torch.Tensor,
                      acc_map: torch.Tensor, s2: torch.Tensor | None = None,
-                     fk: FieldKernel | None = None) -> None:
+                     fk: FieldKernel | None = None,
+                     ph: PhiloxArgs | None = None) -> None:
     """One launch of the 3D LJ kernel on inputs ``substep`` has checked:
     updates pos[perm[i]] in place and writes each cell's summed dE of
     accepted moves into ``de_map`` (float32 [*bs]) and its accept count into
     ``acc_map`` (int32 [*bs]); adds to ``kernel_stats``. The model's
     constants go in as the float32 values the plain version rounds them
     to. ``s2`` selects the NPT form, as for ``launch_kernel``; ``fk`` the
-    field form."""
-    args = (pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), i,
-            pick_u.data_ptr(), disp.data_ptr(), acc_u.data_ptr(),
-            de_map.data_ptr(), acc_map.data_ptr(),
-            kernel_state(pos.device).data_ptr(),
-            cfg.half_cps, cfg.nmax, cfg.n_moves,
-            cfg.cell_width, cfg.box_length / 2.0, cfg.box_length, cfg.beta,
-            pot.sigma * pot.sigma, 4.0 * pot.epsilon, pot.shift_value,
-            pot.r_cut * pot.r_cut, *cull_constants(cfg, pot.r_cut))
+    field form; ``ph`` (``philox_args``) the Philox form, which takes no
+    draws (pick_u, disp and acc_u are then ignored)."""
+    model = (cfg.half_cps, cfg.nmax, cfg.n_moves,
+             cfg.cell_width, cfg.box_length / 2.0, cfg.box_length, cfg.beta,
+             pot.sigma * pot.sigma, 4.0 * pot.epsilon, pot.shift_value,
+             pot.r_cut * pot.r_cut, *cull_constants(cfg, pot.r_cut))
     stream = torch.cuda.current_stream(pos.device).cuda_stream
+    head = (pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), i)
+    maps = (de_map.data_ptr(), acc_map.data_ptr(),
+            kernel_state(pos.device).data_ptr())
+    if ph is not None:
+        LIB_LJ.launch("mcjax_substep_lj3d_philox", *head, *maps, *model,
+                      ctypes.addressof(ph), stream, philox=True)
+        return
+    args = (*head, pick_u.data_ptr(), disp.data_ptr(), acc_u.data_ptr(),
+            *maps, *model)
     if fk is not None:
         LIB_LJ.launch("mcjax_substep_lj3d_field", *args,
                       ctypes.addressof(fk.params), fk.origin.data_ptr(),
@@ -800,21 +939,27 @@ def launch_mix_kernel(cfg: SimConfig, pot: LJMixture, pos: torch.Tensor,
                       pick_u: torch.Tensor, disp: torch.Tensor,
                       acc_u: torch.Tensor, de_map: torch.Tensor,
                       acc_map: torch.Tensor, s2: torch.Tensor | None = None,
-                      fk: FieldKernel | None = None) -> None:
+                      fk: FieldKernel | None = None,
+                      ph: PhiloxArgs | None = None) -> None:
     """One launch of the 3D mixture kernel on inputs ``substep`` has
     checked: updates the coordinates of pos[perm[i]] in place and writes
     each cell's summed dE of accepted moves into ``de_map`` and its accept
     count into ``acc_map``, and adds to ``kernel_stats``, as
-    ``launch_lj_kernel`` does (``s2`` and ``fk`` likewise; the field is
-    species-resolved)."""
-    args = (pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), i,
-            pick_u.data_ptr(), disp.data_ptr(), acc_u.data_ptr(),
-            de_map.data_ptr(), acc_map.data_ptr(),
-            kernel_state(pos.device).data_ptr(),
-            cfg.half_cps, cfg.nmax, cfg.n_moves,
-            cfg.cell_width, cfg.box_length / 2.0, cfg.box_length, cfg.beta,
-            *mixture_constants(pot), *cull_constants(cfg, pot.r_cut))
+    ``launch_lj_kernel`` does (``s2``, ``fk`` and ``ph`` likewise; the
+    field is species-resolved)."""
+    model = (cfg.half_cps, cfg.nmax, cfg.n_moves,
+             cfg.cell_width, cfg.box_length / 2.0, cfg.box_length, cfg.beta,
+             *mixture_constants(pot), *cull_constants(cfg, pot.r_cut))
     stream = torch.cuda.current_stream(pos.device).cuda_stream
+    head = (pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), i)
+    maps = (de_map.data_ptr(), acc_map.data_ptr(),
+            kernel_state(pos.device).data_ptr())
+    if ph is not None:
+        LIB_MIX.launch("mcjax_substep_mix3d_philox", *head, *maps, *model,
+                       ctypes.addressof(ph), stream, philox=True)
+        return
+    args = (*head, pick_u.data_ptr(), disp.data_ptr(), acc_u.data_ptr(),
+            *maps, *model)
     if fk is not None:
         LIB_MIX.launch("mcjax_substep_mix3d_field", *args,
                        ctypes.addressof(fk.params), fk.origin.data_ptr(),

@@ -13,9 +13,9 @@ The field's dE folds into the Metropolis test inside the sub-steps (the
 plain versions and the kernels' field forms, ``cuda_substep``), so the
 energy anchor extends: summed dE == change of (pair total + field total).
 
-Not ported: the JAX package's ``replay_origin``, which rebuilds the origin
-of a finished run from its key alone. The port's ``TorchRandoms`` draws in
-call order, not from a (key, sweep) tree, so no replay can be exact yet.
+``replay_origin`` rebuilds the origin of a finished run from its keyed
+schedule alone (the JAX package's ``replay_origin``): every provider of
+``mcjax_torch.ops.random`` keys its shift draws by (seed, sweep).
 """
 
 from __future__ import annotations
@@ -108,14 +108,40 @@ def field_sweep(cfg: SimConfig, pot: Potential, field, state: SimState,
     ``mcjax.ops.extfield.field_sweep`` computes it, from the sweep's own
     shift draws (device tensors). Consumes ``state`` (see ``mc_sweep``).
     """
-    do_shift = (state.sweep + 1) % cfg.shift_every == 0
     new_state, m, (axis, d) = sweep_with_schedule(
         cfg, pot, state, randoms, field=field, origin=origin)
+    return new_state, advance_origin(cfg, origin, state.sweep, axis, d), m
+
+
+def advance_origin(cfg: SimConfig, origin: torch.Tensor, sweep: int,
+                   axis: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """The frame origin after sweep ``sweep`` (its count before it), whose
+    shift draws are (axis, d): wrap(origin + step * [a == axis]), step = d
+    on a shift sweep and 0 otherwise."""
+    do_shift = (sweep + 1) % cfg.shift_every == 0
     step = d if do_shift else torch.zeros_like(d)
     onehot = (torch.arange(cfg.dim, device=origin.device) == axis).to(
         torch.float32)
-    origin = wrap_into_box(origin + step * onehot, cfg.box_length)
-    return new_state, origin, m
+    return wrap_into_box(origin + step * onehot, cfg.box_length)
+
+
+def replay_origin(cfg: SimConfig, randoms: RandomProvider, sweep_start: int,
+                  n_sweeps: int, origin: torch.Tensor | None = None
+                  ) -> torch.Tensor:
+    """The frame origin after ``n_sweeps`` sweeps from sweep count
+    ``sweep_start``, without running any sweep
+    (``mcjax.ops.extfield.replay_origin``): the shifts come from the
+    provider's keyed ``schedule(cfg, sweep)``, so this is bit for bit the
+    origin ``field_sweep`` carried through a run under the same provider
+    (and the JAX package's, given its key tree). ``origin`` (float32 [dim];
+    zeros if None) is the start's, on the provider's device."""
+    if origin is None:
+        origin = torch.zeros(cfg.dim, dtype=torch.float32,
+                             device=randoms.device)
+    for sweep in range(sweep_start, sweep_start + n_sweeps):
+        _, axis, d = randoms.schedule(cfg, sweep)
+        origin = advance_origin(cfg, origin, sweep, axis, d)
+    return origin
 
 
 def run_field_sweeps(cfg: SimConfig, pot: Potential, field, state: SimState,

@@ -14,6 +14,11 @@ versions.
 A run on CUDA makes no host sync per sweep: the color order, the shift
 axis and distance are device tensors the kernels read, the metrics stay on
 the device and are stacked once at the end.
+
+A provider with a ``kernel_key`` (``PhiloxRandoms``) hands the sub-steps
+its key instead of materialized draws: on CUDA the kernels' Philox forms
+generate the draws in registers (mcjax's in-kernel PRNG form), on the CPU
+the plain path materializes the same draws.
 """
 
 from __future__ import annotations
@@ -78,8 +83,12 @@ def sweep_with_schedule(cfg: SimConfig, pot: Potential, state: SimState,
     perm, axis, d = randoms.schedule(cfg, state.sweep)
     pos, occ = state.pos, state.occ
     need_acc = pot.has_energy or (field is not None and field.has_energy)
-    draws = [randoms.substep(cfg, state.sweep, i, need_acc=need_acc)
-             for i in range(cfg.n_colors)]
+    kernel_key = getattr(randoms, "kernel_key", None)
+    if kernel_key is not None:
+        draws = kernel_key(state.sweep)
+    else:
+        draws = [randoms.substep(cfg, state.sweep, i, need_acc=need_acc)
+                 for i in range(cfg.n_colors)]
     de, acc, prop = cuda_substep.substeps(cfg, pot, pos, occ, perm, draws,
                                           scale=scale, field=field,
                                           origin=origin)

@@ -3,6 +3,7 @@
 
     python3 scripts/profile_torch_sweep.py [--workload {hard-disk,lj3d,ka3d}]
                                            [--moves 64 8] [--sweeps 10]
+                                           [--rng {in-kernel,host}]
                                            [--tree DIR]
 
 For each n_moves: builds the workload's system, as ``mcjax_torch.bench``
@@ -17,9 +18,13 @@ up, then over ``--sweeps`` sweeps measures
   * PyTorch calls per sweep (the operators the run loop calls, not the
     ones they call in turn) and device kernels per sweep (torch.profiler),
 and prints one JSON line per n_moves with the device idle share
-1 - busy / wall. ``--tree`` profiles another checkout's ``mcjax_torch``
-(by default the tree this script lies in), to compare with a parent
-commit in one chip call. Needs a CUDA device.
+1 - busy / wall. ``--rng`` picks the draws as ``mcjax_torch.bench`` does:
+in-kernel (the sub-step kernels' Philox forms, ih_k 8 in 3D and 12 in 2D;
+the default) or host draws (``TorchRandoms``), through
+``mcjax_torch.bench.make_randoms``. ``--tree`` profiles another
+checkout's ``mcjax_torch`` (by default the tree this script lies in; it
+needs ``bench.make_randoms``), to compare with a parent commit in one chip
+call. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -35,9 +40,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 
-def measure(workload: str, n_moves: int, sweeps: int) -> dict:
+def measure(workload: str, n_moves: int, sweeps: int, rng: str) -> dict:
     from mcjax_torch import bench
-    from mcjax_torch.ops.random import TorchRandoms
     from mcjax_torch.ops.sweep import run_sweeps
     if workload == "lj3d":
         cfg, pot, st = bench.build_lj3d(1_000_000, 24, n_moves,
@@ -48,7 +52,8 @@ def measure(workload: str, n_moves: int, sweeps: int) -> dict:
     else:
         cfg, pot, st = bench.build(1 << 20, 0.5, 2.0, 7, n_moves,
                                    device="cuda")
-    rnd = TorchRandoms(torch.Generator("cuda").manual_seed(0))
+    rnd = bench.make_randoms(rng, 0, torch.device("cuda"),
+                             bench.DEFAULT_IH_K[workload])
     st, _ = run_sweeps(cfg, pot, st, sweeps, rnd)
     torch.cuda.synchronize()
 
@@ -79,6 +84,7 @@ def measure(workload: str, n_moves: int, sweeps: int) -> dict:
     return {
         "workload": workload,
         "n_moves": n_moves,
+        "rng": rng,
         "wall_ms_per_sweep": wall_ms,
         "enqueue_ms_per_sweep": 1e3 * t_enqueue / sweeps,
         "device_busy_ms_per_sweep": (busy / sweeps) if busy else None,
@@ -96,6 +102,8 @@ def main() -> None:
     ap.add_argument("--moves", type=int, nargs="+", default=None,
                     help="64 8 (hard-disk) / 60 (lj3d, ka3d)")
     ap.add_argument("--sweeps", type=int, default=10)
+    ap.add_argument("--rng", choices=("in-kernel", "host"),
+                    default="in-kernel")
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     args = ap.parse_args()
@@ -107,7 +115,7 @@ def main() -> None:
                          text=True, check=True, timeout=60).stdout.strip()
     moves = args.moves or ([64, 8] if args.workload == "hard-disk" else [60])
     for n_moves in moves:
-        res = measure(args.workload, n_moves, args.sweeps)
+        res = measure(args.workload, n_moves, args.sweeps, args.rng)
         res["card"] = smi
         res["tree"] = args.tree
         print(json.dumps(res))

@@ -31,7 +31,10 @@ JSON line with the card's name and power limit.
 It uses only the wrappers and ``mcjax_torch.bench``, which the parent
 commits have too, so it times another checkout as well: to compare two
 trees on one card, unpack the other under ``build/`` and run the script
-with ``--tree`` on each in turns (A, B, B, A) in one chip call.
+with ``--tree`` on each in turns (A, B, B, A) in one chip call. The draws
+of the warm-up sweeps and of the timed sub-steps come from
+``CallOrderRandoms`` below, not from the tree's own providers, so two
+trees whose host-random kernels agree time the same inputs.
 """
 
 from __future__ import annotations
@@ -50,6 +53,39 @@ WORKLOADS = {
 }
 REPS = 10
 SLEEP_CYCLES = 10_000_000   # about 5 ms at the H100's boost clock
+
+
+class CallOrderRandoms:
+    """The schedule and sub-step draws from one ``torch.Generator``, in
+    call order (the sweep and sub-step only fix shapes)."""
+
+    def __init__(self, seed: int):
+        self.generator = torch.Generator("cuda").manual_seed(seed)
+
+    def schedule(self, cfg, sweep):
+        g = self.generator
+        perm = torch.randperm(cfg.n_colors, generator=g, device="cuda",
+                              dtype=torch.int32)
+        axis = torch.randint(0, cfg.dim, (), generator=g, device="cuda",
+                             dtype=torch.int32)
+        half_w = cfg.cell_width / 2.0
+        d = torch.empty((), dtype=torch.float32, device="cuda").uniform_(
+            -half_w, half_w, generator=g)
+        return perm, axis, d
+
+    def substep(self, cfg, sweep, i, need_acc):
+        g = self.generator
+        n_m, dim, bs = cfg.n_moves, cfg.dim, cfg.block_shape
+        pick_u = torch.rand((n_m, *bs), generator=g, device="cuda")
+        disp = torch.empty((n_m, dim, *bs), dtype=torch.float32,
+                           device="cuda")
+        if cfg.proposal == "gaussian":
+            disp.normal_(0.0, cfg.step_size, generator=g)
+        else:
+            disp.uniform_(-cfg.step_size, cfg.step_size, generator=g)
+        acc_u = (torch.rand((n_m, *bs), generator=g, device="cuda")
+                 if need_acc else None)
+        return pick_u, disp, acc_u
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -75,7 +111,7 @@ def time_workload(name: str, sweeps: int) -> dict:
     build, nmax, launch_name, seed, run = WORKLOADS[name]
     cfg, pot, st = getattr(bench, build)(1_000_000, nmax, 60, seed=0,
                                          device="cuda")
-    rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(seed))
+    rnd = CallOrderRandoms(seed)
     st, _ = mt.run_sweeps(cfg, pot, st, 3, rnd)
     perm, _, _ = rnd.schedule(cfg, st.sweep)
     launch = getattr(cuda_substep, launch_name)
@@ -104,7 +140,7 @@ def disk_state():
     from mcjax_torch import bench
     cfg, pot, st = bench.build(1 << 20, 0.5, 2.0, 7, 64, seed=0,
                                device="cuda")
-    rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(1))
+    rnd = CallOrderRandoms(1)
     st, _ = mt.run_sweeps(cfg, pot, st, 1, rnd)
     perm, _, _ = rnd.schedule(cfg, st.sweep)
     draws = [rnd.substep(cfg, st.sweep, i, False)
@@ -154,7 +190,7 @@ def time_shifts() -> dict:
         build, nmax, _, seed, _ = WORKLOADS[name]
         ecfg, epot, est = getattr(bench, build)(1_000_000, nmax, 60, seed=0,
                                                 device="cuda")
-        rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(seed))
+        rnd = CallOrderRandoms(seed)
         est, _ = mt.run_sweeps(ecfg, epot, est, 3, rnd)
         states[name] = (ecfg, est)
     out = {}

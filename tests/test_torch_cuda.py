@@ -950,3 +950,131 @@ def test_field_forms_at_the_wall_edge(cuda, model, ulps):
         accepted += int(acc)
     # half the centers are beyond their bound, the other half inside it
     assert 0 < accepted < cfg.n_moves * cfg.n_atoms
+
+
+# The Philox forms: each held to its host-random twin fed the same draws,
+# materialized by PhiloxRandoms.substep on the card (the twin is held to
+# the plain version above). Their arithmetic after the draws is the
+# twin's, so they agree bit for bit.
+
+def _philox():
+    from mcjax_torch.ops.random import PhiloxRandoms
+    return PhiloxRandoms
+
+
+@pytest.mark.parametrize("case,proposal,ih_k",
+                         [((4096, 7), "uniform", 12),
+                          ("sparse", "uniform", 12), ("full", "uniform", 12),
+                          ((4096, 7), "gaussian", 2),
+                          ((4096, 7), "gaussian", 8),
+                          ((1000, 5), "gaussian", 12),
+                          ((4096, 12), "gaussian", 64)])
+def test_disk_philox_form_matches_twin(cuda, case, proposal, ih_k):
+    """The 2D kernel's Philox form, one launch of a sweep's four sub-steps,
+    against the host-random kernel fed the same draws and against the
+    plain CPU path under the same key: pos, occ and counts bit for bit. In
+    the ``full`` case the overflow pass runs (counted)."""
+    cfg, pot, st, _ = _disk_case(case, cuda)
+    cfg = cfg.replace(proposal=proposal, step_size=0.1)
+    rnd = _philox()(cfg.n_atoms + ih_k, cuda, ih_k)
+    perm, _, _ = rnd.schedule(cfg, st.sweep)
+    key = rnd.kernel_key(st.sweep)
+    draws = [rnd.substep(cfg, st.sweep, i, False)
+             for i in range(cfg.n_colors)]
+    twin, occ = st.pos.clone(), st.occ.clone()
+    _, t_acc, t_prop = cuda_substep.substeps(cfg, pot, twin, st.occ, perm,
+                                             draws)
+    cpu = st.pos.cpu()
+    _, c_acc, c_prop = cuda_substep.substeps(cfg, pot, cpu, st.occ.cpu(),
+                                             perm.cpu(), key)
+    stats = cuda_substep.kernel_stats(cuda)
+    stats.zero_()
+    lib = cuda_substep.LIB_PHILOX
+    before = (lib.launches, lib.philox_launches)
+    _, k_acc, k_prop = cuda_substep.substeps(cfg, pot, st.pos, st.occ, perm,
+                                             key)
+    torch.cuda.synchronize()
+    assert (lib.launches, lib.philox_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert torch.equal(st.pos.view(torch.int32), twin.view(torch.int32))
+    assert torch.equal(st.pos.cpu().view(torch.int32), cpu.view(torch.int32))
+    assert torch.equal(st.occ, occ)
+    assert k_acc.tolist() == t_acc.tolist() == c_acc.tolist()
+    assert k_prop.tolist() == t_prop.tolist() == c_prop.tolist()
+    assert 0 < int(k_acc.sum()) < int(k_prop.sum())
+    assert (int(stats[0]) > 0) == (case == "full")
+
+
+@pytest.mark.parametrize("model,layout,ih_k",
+                         [("lj", (4000, 24), 8), ("lj", "sparse", 8),
+                          ("lj", "full", 8), ("lj", (3000, 16), 2),
+                          ("lj", (4000, 24), 12), ("lj", (4000, 24), 64),
+                          ("ka", (4500, 34), 8), ("ka", "sparse", 8),
+                          ("ka", "full", 8), ("ka", (2800, 64), 2),
+                          ("ka", (4500, 34), 64)])
+def test_energetic_philox_forms_match_twin(cuda, model, layout, ih_k):
+    """The LJ and mixture kernels' Philox forms for all 8 colors of a sweep
+    against their host-random twins fed the same draws, bit for bit:
+    positions, the per-sub-step dE, accepted and proposed counts. In the
+    ``full`` layout the frozen slots overflow the shared memory and the
+    counted pass runs."""
+    cfg, pot, st, warm = _energetic_case((model, layout), cuda)
+    lib = cuda_substep.LIB_LJ if model == "lj" else cuda_substep.LIB_MIX
+    rnd = _philox()(cfg.n_atoms + ih_k, cuda, ih_k)
+    if warm:
+        st, _ = mt.run_sweeps(cfg, pot, st, warm, rnd)  # leave the start
+    perm, _, _ = rnd.schedule(cfg, st.sweep)
+    draws = [rnd.substep(cfg, st.sweep, i, True)
+             for i in range(cfg.n_colors)]
+    twin = st.pos.clone()
+    t_de, t_acc, t_prop = cuda_substep.substeps(cfg, pot, twin, st.occ, perm,
+                                                draws)
+    stats = cuda_substep.kernel_stats(cuda)
+    stats.zero_()
+    before = (lib.launches, lib.philox_launches)
+    k_de, k_acc, k_prop = cuda_substep.substeps(
+        cfg, pot, st.pos, st.occ, perm, rnd.kernel_key(st.sweep))
+    torch.cuda.synchronize()
+    assert (lib.launches, lib.philox_launches) == (before[0] + 8,
+                                                   before[1] + 8)
+    assert torch.equal(st.pos.view(torch.int32), twin.view(torch.int32))
+    assert torch.equal(k_de.view(torch.int32), t_de.view(torch.int32))
+    assert torch.equal(k_acc, t_acc) and torch.equal(k_prop, t_prop)
+    assert int(k_acc.sum()) > 0
+    if layout == "full":
+        assert int(stats[0]) > 0
+
+
+def test_philox_words_kernel_matches_plain(cuda):
+    from mcjax_torch.ops.random import philox4x32
+    g = torch.Generator(cuda).manual_seed(2)
+    ctr = torch.randint(0, 1 << 32, (4, 1 << 20), generator=g, device=cuda,
+                        dtype=torch.int64)
+    for key in [(0, 0), (0xFFFFFFFF, 0x12345678), (0xA4093822, 0x299F31D0)]:
+        assert torch.equal(cuda_substep.philox_words(ctr, key),
+                           philox4x32(ctr, key))
+    kat = torch.tensor([0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344],
+                       dtype=torch.int64, device=cuda).reshape(4, 1)
+    assert cuda_substep.philox_words(kat, (0xa4093822, 0x299f31d0))[:, 0] \
+        .tolist() == [0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1]
+
+
+@pytest.mark.parametrize("model", ["disks", "lj", "ka"])
+def test_philox_key_raises_under_a_field_or_a_scale(cuda, model):
+    """No Philox form takes a field (ROADMAP B3) or an NPT scale: on CUDA
+    the key raises rather than materialize the draws."""
+    if model == "disks":
+        cfg, pot, st, _ = _disk_case((1000, 5), cuda)
+    else:
+        cfg, pot, st, _ = _energetic_case((model, (4000, 24) if model == "lj"
+                                           else (4500, 34)), cuda)
+    rnd = _philox()(1, cuda, 8)
+    perm, _, _ = rnd.schedule(cfg, 0)
+    key = rnd.kernel_key(0)
+    walls = _field_cases(cfg.dim, cfg.box_length, model == "ka")["walls"]
+    with pytest.raises(NotImplementedError, match="B3"):
+        cuda_substep.substeps(cfg, pot, st.pos, st.occ, perm, key,
+                              field=walls)
+    with pytest.raises(NotImplementedError, match="NPT"):
+        cuda_substep.substeps(cfg, pot, st.pos, st.occ, perm, key,
+                              scale=torch.tensor(1.0, device=cuda))
