@@ -94,6 +94,27 @@ and checks three paths, each through the user's entry point
   Each Philox form is timed beside its host-random twin on the same state
   and draws, with its bound counting the Philox calls' INT32 operations.
 
+* the pair models (``mcjax_torch.models.potentials``; the kernels
+  ``csrc/substep_pair.cu`` in 3D and the pair form of the 2D one-launch
+  kernel, ``csrc/substep_pair2d.cu``, host draws): three more ENERGETIC
+  workloads at 1M, ``hs3d`` (3D hard spheres, phi 0.45), ``sw3d`` (3D
+  square wells, rho 0.7) and ``sw2d`` (square wells on the hard-disk
+  cell), through the same phases as lj3d but bit for bit (hs3d and sw3d
+  all 8 colors, sw2d one launch of a sweep's 4 sub-steps: positions,
+  occupancies, counts, dE; the small runs sub-step by sub-step), then the
+  path through ``mcjax_torch.bench.run_nvt`` (PAIR_SWEEPS + PAIR_SWEEPS)
+  with launch counts, overflow, N, ``validate_state`` (no overlap) and the
+  acceptance, and for the square wells an anchored run in which the
+  carried dE plus every shift's measured energy change equals E_end -
+  E_start exactly (integer energies); then WCA, soft spheres, Yukawa,
+  Morse and a fitted polynomial in 3D and 2D, and LJ in 2D, each at N =
+  1,000,000 by mcjax's CLI rules (one sweep through the kernels, whose
+  launches are counted, then one sub-step against its plain version under
+  the near-tie rule, timed) and in a small run against the plain CPU path
+  under the same rule. Every energetic bound counts only the frozen slots
+  within the model's reach of the own cell (``kept_frozen``, the kernels'
+  own culling test).
+
 Any failure raises and the script exits non-zero. Without a CUDA device,
 or without the repository beside it, it exits non-zero and prints no
 result. The second-to-last lines are a JSON object of per-kernel numbers
@@ -130,6 +151,14 @@ OPS_PER_LJ_TERM = 20
 # inv6 2, bracket fma 2, shift subtract 1, energy multiply 1, cutoff
 # multiply, compare and select 3, accumulate 1.
 OPS_PER_MIX_TERM = 23
+# Float32 operations a pair term costs in each single-species model's
+# kernel (csrc/pair.cuh): the squared distance (3 subtractions, a multiply,
+# 2 fmas; 2D: 2, 1, 1, counted alike), the cutoff or core tests, the
+# accumulation and the term itself (the reciprocal as 3, a square root or
+# exp as 4, a division as 8).
+OPS_PER_PAIR = {"HardSphere": 8, "SquareWell": 10,
+                "LennardJones": OPS_PER_LJ_TERM, "WCA": 17, "SoftSphere": 17,
+                "Yukawa": 28, "Morse": 22, "PolynomialPotential": 21}
 # INT32 issue rate of one H100 SXM: 64 INT32 lanes an SM a clock (the
 # Hopper architecture white paper) x 132 SMs x 1.98 GHz, the boost clock
 # of the data sheet's float32 rate above.
@@ -335,75 +364,119 @@ def plain_substep(cuda_substep, pot):
 
 
 def compare_energetic_substep(cfg, pot, cuda_substep, pos, occ, perm, i,
-                              draws, pos_plain, occ_plain) -> int:
+                              draws, pos_plain, occ_plain, exact=False):
     """One energetic sub-step through the kernel's wrapper (on ``pos``, in
-    place) and the plain version on the CPU (on ``pos_plain``, in place;
-    the same inputs), held to the near-tie rule. Returns the count of cells
-    that differ, all near ties."""
+    place) and the plain version on ``pos_plain``'s device (in place; the
+    same inputs): bit for bit in positions, accepted count and dE if
+    ``exact`` (hard spheres, square wells), else held to the near-tie rule.
+    Returns (differing cells, all near ties; near-tie cells; |dE kernel -
+    dE plain|; the plain version's record)."""
     color = int(perm[i])
     dev = pos_plain.device
     rec = {}
     own, de, acc, prop = plain_substep(cuda_substep, pot)(
-        cfg, pot, color, pos_plain, occ_plain, *(t.to(dev) for t in draws),
-        rec)
+        cfg, pot, color, pos_plain, occ_plain,
+        *(None if t is None else t.to(dev) for t in draws), rec)
     k_de, k_acc, k_prop = cuda_substep.substep(cfg, pot, pos, occ, perm, i,
                                                *draws)
     torch.cuda.synchronize()
     got = pos[color].to(dev)
     differs = (got.view(torch.int32) != own.view(torch.int32)).any(0).any(0)
-    ties = rec["margin"] <= NEAR_TIE
-    if bool((differs & ~ties).any()):
-        raise AssertionError(f"substep kernel != plain outside near ties, "
-                             f"color {color}: {int(differs.sum())} cells")
+    ties = rec["margin"] <= NEAR_TIE if "margin" in rec else \
+        torch.zeros_like(differs)
+    gap = abs(float(k_de) - float(de))
+    what = f"{type(pot).__name__} {cfg.dim}D sub-step, color {color}"
     if int(k_prop) != int(prop):
-        raise AssertionError(f"proposals {int(k_prop)} != {int(prop)}")
-    de_gap = abs(float(k_de) - float(de))
-    if not bool(differs.any()):
-        if int(k_acc) != int(acc) or de_gap > DE_REL * abs(float(de)) + DE_ABS:
-            raise AssertionError(f"substep color {color}: accepted "
-                                 f"{int(k_acc)} vs {int(acc)}, dE "
-                                 f"{float(k_de)} vs {float(de)}")
+        raise AssertionError(f"{what}: proposals {int(k_prop)} != "
+                             f"{int(prop)}")
+    if exact and (bool(differs.any()) or int(k_acc) != int(acc)
+                  or gap != 0.0):
+        raise AssertionError(f"{what}: kernel != plain, {int(differs.sum())}"
+                             f" cells, accepted {int(k_acc)} vs {int(acc)}, "
+                             f"dE {float(k_de)} vs {float(de)}")
+    if bool((differs & ~ties).any()):
+        raise AssertionError(f"{what}: kernel != plain outside near ties, "
+                             f"{int((differs & ~ties).sum())} cells")
+    if not bool(differs.any()) and (
+            int(k_acc) != int(acc) or gap > DE_REL * abs(float(de)) + DE_ABS):
+        raise AssertionError(f"{what}: accepted {int(k_acc)} vs {int(acc)}, "
+                             f"dE {float(k_de)} vs {float(de)}")
     pos_plain[color] = own
-    return int(differs.sum())
+    return int(differs.sum()), int(ties.sum()), gap, rec
 
 
-# For each energetic workload: its build function in mcjax_torch.bench and
-# the nmax it runs at N = 1,000,000, the kernel launch helper, the seed and
-# warm-up of its checks, the size of its small run, the keys of its
-# sub-step and shift entries, its main-path run function, sweeps and
-# sub-step library, and the A / B populations it must keep.
+# The pair models' main paths and small runs.
+PAIR_SWEEPS = 10          # hs3d, sw3d, sw2d: warm-up and timed run, each
+PAIR_WARMUP = 2           # kernel sweeps before the kernel-vs-plain checks
+PAIR_ANCHOR_SWEEPS = 2    # square wells: sweeps of each half of the
+                          # anchored run (every shift's change measured)
+PAIR_SMALL = dict(n=1500, nmax=None, n_moves=8, sweeps=3, seed=23)
+
+# For each energetic workload (mcjax_torch.bench.build_workload's): the
+# nmax it runs at N = 1,000,000 (None: the CLI's auto_nmax), the seed and
+# warm-up of its checks, its small run, the
+# rows of its sub-step and shift kernels (no shift row: the shift kernel
+# is lj3d's, at other shapes), its main path's sweeps, sub-step library
+# and source, the A / B populations it must keep, and whether its kernel
+# equals the plain version bit for bit (hard spheres and square wells:
+# integer energies, so every sum is exact in any order).
 ENERGETIC = {
-    "lj3d": dict(build="build_lj3d", nmax=24, launch="launch_lj_kernel",
-                 seed=4, warmup=LJ_WARMUP, small=(4000, 24),
-                 substep="substep_lj3d", shift="shift3d",
-                 run="run_bench_lj3d", sweeps=LJ_SWEEPS, lib="substep_lj",
-                 species=None),
-    "ka3d": dict(build="build_ka3d", nmax=34, launch="launch_mix_kernel",
-                 seed=7, warmup=KA_WARMUP, small=(4500, 34),
+    "lj3d": dict(nmax=24, seed=4,
+                 warmup=LJ_WARMUP,
+                 small=dict(n=4000, nmax=24, n_moves=16, sweeps=5, seed=5),
+                 substep="substep_lj3d", shift="shift3d", sweeps=LJ_SWEEPS,
+                 lib="substep_lj", source="substep_lj.cu", species=None,
+                 exact=False),
+    "ka3d": dict(nmax=34, seed=7,
+                 warmup=KA_WARMUP,
+                 small=dict(n=4500, nmax=34, n_moves=16, sweeps=5, seed=8),
                  substep="substep_ka3d", shift="shift_ka3d",
-                 run="run_bench_ka3d", sweeps=KA_SWEEPS, lib="substep_mix",
-                 species=KA_POPULATIONS),
+                 sweeps=KA_SWEEPS, lib="substep_mix", source="substep_mix.cu",
+                 species=KA_POPULATIONS, exact=False),
+    "hs3d": dict(nmax=None, seed=31,
+                 warmup=PAIR_WARMUP, small=PAIR_SMALL, substep="substep_hs3d",
+                 shift=None, sweeps=PAIR_SWEEPS, lib="substep_pair",
+                 source="substep_pair.cu", species=None, exact=True),
+    "sw3d": dict(nmax=None, seed=31,
+                 warmup=PAIR_WARMUP, small=PAIR_SMALL, substep="substep_sw3d",
+                 shift=None, sweeps=PAIR_SWEEPS, lib="substep_pair",
+                 source="substep_pair.cu", species=None, exact=True),
+    "sw2d": dict(nmax=None, seed=31,
+                 warmup=PAIR_WARMUP, small=PAIR_SMALL, substep="substep_sw2d",
+                 shift=None, sweeps=PAIR_SWEEPS, lib="substep_pair2d",
+                 source="substep_pair2d.cu", species=None, exact=True),
 }
 
 
-def check_energetic_against_plain(mt, cuda_substep, cuda_shift, workload):
-    """An energetic workload at N = 1,000,000: the sub-step kernel vs its
-    plain version for all 8 colors after a few sweeps, and the 3D shift
-    kernel (with every plane the state carries)."""
-    from mcjax_torch import bench
+def check_energetic_against_plain(mt, bench, cuda_substep, cuda_shift,
+                                  workload):
+    """An energetic workload at N = 1,000,000 after a few kernel sweeps:
+    the sub-step kernel against its plain version for all colors, in 3D
+    one launch a color, in 2D one launch of the sweep's sub-steps
+    (``hold_sweep_2d``), bit for bit for an exact workload, else under the
+    near-tie rule; the cells that took the overflow pass; and the 3D shift
+    kernel (with every plane the state carries) where the workload has a
+    shift row."""
     w = ENERGETIC[workload]
-    cfg, pot, st = getattr(bench, w["build"])(1_000_000, w["nmax"], 60,
-                                              seed=0, device="cuda")
-    launch = getattr(cuda_substep, w["launch"])
-    plain = plain_substep(cuda_substep, pot)
+    cfg, pot, st, _ = bench.build_workload(workload, nmax=w["nmax"],
+                                           device="cuda")
     rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(w["seed"]))
     st, _ = mt.run_sweeps(cfg, pot, st, w["warmup"], rnd)
     perm, axis, d = rnd.schedule(cfg, st.sweep)
-    n_diff = n_ties = 0
+    stats = cuda_substep.kernel_stats("cuda")
+    stats.zero_()
+    need_acc = pot.has_energy
     worst_cell = worst_sub = 0.0
     inputs = {}
-    for i in range(cfg.n_colors):
-        draws = rnd.substep(cfg, st.sweep, i, True)
+    if cfg.dim == 2:
+        inputs["substep"] = hold_sweep_2d(
+            cuda_substep, cfg, pot, st, perm,
+            [rnd.substep(cfg, st.sweep, i, need_acc)
+             for i in range(cfg.n_colors)])
+    n_diff = n_ties = 0
+    plain = plain_substep(cuda_substep, pot)
+    for i in range(cfg.n_colors if cfg.dim == 3 else 0):
+        draws = rnd.substep(cfg, st.sweep, i, need_acc)
         color = int(perm[i])
         before = st.pos.clone()
         rec = {}
@@ -413,20 +486,27 @@ def check_energetic_against_plain(mt, cuda_substep, cuda_shift, workload):
                              device="cuda")
         acc_map = torch.empty(cfg.block_shape, dtype=torch.int32,
                               device="cuda")
-        launch(cfg, pot, st.pos, st.occ, perm, i, *draws, de_map, acc_map)
+        launch_3d(cuda_substep, cfg, pot)(cfg, pot, st.pos, st.occ, perm, i,
+                                          *draws, de_map, acc_map)
         torch.cuda.synchronize()
         differs = (st.pos[color].view(torch.int32)
                    != own.view(torch.int32)).any(0).any(0)
-        ties = rec["margin"] <= NEAR_TIE
+        ties = rec["margin"] <= NEAR_TIE if "margin" in rec else \
+            torch.zeros_like(differs)
+        k_de = float(de_map.double().sum())
+        k_acc = int(acc_map.sum())
+        gap = abs(k_de - float(de))
+        cell_gap = float((de_map - rec["de_cell"]).abs()[~differs].max())
+        if w["exact"] and (bool(differs.any()) or k_acc != int(acc)
+                           or cell_gap != 0.0 or gap != 0.0):
+            raise AssertionError(f"{workload} substep color {color}: kernel "
+                                 f"!= plain, {int(differs.sum())} cells, "
+                                 f"accepted {k_acc} vs {int(acc)}, dE {k_de}"
+                                 f" vs {float(de)}")
         if bool((differs & ~ties).any()):
             raise AssertionError(f"{workload} substep kernel != plain outside"
                                  f" near ties, color {color}: "
                                  f"{int((differs & ~ties).sum())} cells")
-        k_de = float(de_map.double().sum())
-        k_acc = int(acc_map.sum())
-        gap = abs(k_de - float(de))
-        same = ~differs
-        cell_gap = float((de_map - rec["de_cell"]).abs()[same].max())
         if not bool(differs.any()) and (
                 k_acc != int(acc) or gap > DE_REL * abs(float(de)) + DE_ABS):
             raise AssertionError(f"{workload} substep color {color}: "
@@ -442,67 +522,118 @@ def check_energetic_against_plain(mt, cuda_substep, cuda_shift, workload):
               f"kernel {k_de:.6f} plain {float(de):.6f}; largest per-cell "
               f"dE difference {cell_gap:.3e}")
         inputs["substep"] = (before, perm, i, draws, rec)
-    print(f"{workload} substep, 8 colors at N = 1,000,000: {n_diff} "
-          f"differing cells, all near ties; near-tie cells {n_ties}; largest"
-          f" dE difference per cell {worst_cell:.3e}, per sub-step "
-          f"{worst_sub:.3e}")
-    err = {w["substep"]: worst_cell,
-           w["shift"]: check_shift_kernel(cfg, st, d, cuda_shift)}
+    if cfg.dim == 3:
+        print(f"{workload} substep, 8 colors at N = {cfg.n_atoms}: {n_diff} "
+              f"differing cells, all near ties; near-tie cells {n_ties}; "
+              f"largest dE difference per cell {worst_cell:.3e}, per "
+              f"sub-step {worst_sub:.3e}"
+              + (" (bit for bit)" if w["exact"] else ""))
+    print(f"{w['substep']}: {int(stats[0])} of "
+          f"{cfg.n_colors * cfg.cells_per_color} cell sub-steps took the "
+          "overflow pass in the checks")
+    err = {w["substep"]: worst_cell}
+    if w["shift"]:
+        err[w["shift"]] = check_shift_kernel(cfg, st, d, cuda_shift)
     inputs["shift"] = (st.pos, st.occ, axis, d)
     return cfg, pot, st, err, inputs
 
 
-def check_energetic_small_run_against_cpu(mt, cuda_substep, cuda_shift,
-                                          workload):
-    """A small energetic run, 5 sweeps: kernels on the GPU against the
-    plain CPU path fed the same random numbers, sub-step by sub-step, held
-    to the near-tie rule (a state that differs at a near tie is carried
-    over from the GPU), every shift bit for bit."""
-    from mcjax_torch import bench
-    w = ENERGETIC[workload]
-    n, nmax = w["small"]
-    build = getattr(bench, w["build"])
-    cfg, pot, st = build(n, nmax, 16, device="cuda")
-    _, _, cpu = build(n, nmax, 16, device="cpu")
-    rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(w["seed"] + 1))
-    pos, occ = st.pos, st.occ
-    p_pos, p_occ = cpu.pos, cpu.occ
+def small_run_against_cpu(mt, cuda_substep, cuda_shift, cfg, pot, st, cpu,
+                          seed: int, sweeps: int, exact: bool,
+                          label: str) -> None:
+    """A small energetic run, ``sweeps`` sweeps from the start ``st`` (on
+    the card) and its copy ``cpu``: kernels on the card against the plain
+    CPU path fed the same random numbers, sub-step by sub-step
+    (``compare_energetic_substep``: bit for bit if ``exact``, else under
+    the near-tie rule, a state that differs at a near tie carried over from
+    the card), every shift bit for bit, no overflow."""
+    pos, occ, p_pos, p_occ = st.pos, st.occ, cpu.pos, cpu.occ
     if not (bitwise_equal(pos.cpu(), p_pos) and bitwise_equal(occ.cpu(),
                                                               p_occ)):
-        raise AssertionError(f"{workload} small run: GPU start != CPU start")
+        raise AssertionError(f"{label} small run: GPU start != CPU start")
+    rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(seed))
     ties = 0
-    for sweep in range(5):
+    for sweep in range(sweeps):
         perm, axis, d = rnd.schedule(cfg, sweep)
         for i in range(cfg.n_colors):
-            draws = rnd.substep(cfg, sweep, i, True)
+            draws = rnd.substep(cfg, sweep, i, pot.has_energy)
             n_diff = compare_energetic_substep(cfg, pot, cuda_substep, pos,
                                                occ, perm, i, draws, p_pos,
-                                               p_occ)
+                                               p_occ, exact)[0]
             if n_diff:
                 ties += n_diff
                 p_pos.copy_(pos.cpu())
         pos, occ, ovf = cuda_shift.shift(cfg, pos, occ, axis, d)
         p_pos, p_occ, p_ovf = cuda_shift.shift(cfg, p_pos, p_occ, axis.cpu(),
                                                d.cpu())
-        if not (bitwise_equal(pos.cpu(), p_pos) and bitwise_equal(occ.cpu(),
-                                                                   p_occ)
-                and bool(ovf) == bool(p_ovf)):
-            raise AssertionError(f"{workload} small run: shift {sweep} "
-                                 "differs")
-    print(f"{workload} small run (N={n}, 5 sweeps): GPU kernels == CPU plain"
-          f" path outside near ties (differing cells {ties}); "
-          f"{int(occ.sum())} particles")
+        if not (bitwise_equal(pos.cpu(), p_pos)
+                and bitwise_equal(occ.cpu(), p_occ)) or bool(ovf) \
+                or bool(p_ovf):
+            raise AssertionError(f"{label} small run: shift {sweep} differs"
+                                 " or overflows")
+    print(f"{label} small run (N={cfg.n_atoms}, {sweeps} sweeps): GPU "
+          "kernels == CPU plain path "
+          + ("bit for bit" if exact else
+             f"outside near ties (differing cells {ties})")
+          + f"; {int(occ.sum())} particles")
 
 
-def substep_bound_ms(cfg, st, inputs, cells, ops_per_test=OPS_PER_PAIR_TEST,
-                     draws_read=True, int_ops=0) -> tuple[float, str]:
+def check_energetic_small_run_against_cpu(mt, bench, cuda_substep,
+                                          cuda_shift, workload) -> None:
+    """An energetic workload's small run (its ``small`` entry) through
+    ``small_run_against_cpu``."""
+    w = ENERGETIC[workload]
+    sm = w["small"]
+    cfg, pot, st, _ = bench.build_workload(workload, sm["n"], sm["nmax"],
+                                           sm["n_moves"], device="cuda")
+    cpu = bench.build_workload(workload, sm["n"], sm["nmax"], sm["n_moves"],
+                               device="cpu")[2]
+    small_run_against_cpu(mt, cuda_substep, cuda_shift, cfg, pot, st, cpu,
+                          sm["seed"], sm["sweeps"], w["exact"], workload)
+
+
+def kept_frozen(cfg, pot, st, color: int, cells) -> torch.Tensor:
+    """Per cell of ``color`` [*bs]: the live frozen slots within the
+    model's reach of the cell (``interaction_reach``; a mixture's largest
+    cutoff), by the kernels' own culling test (``keep_frozen``): the
+    neighbor slots a move's pair work needs, and the only ones the kernels
+    stage."""
+    from mcjax_torch.models.potentials import interaction_reach
+    from mcjax_torch.ops import cuda_substep
+    nbrp, nbr_occ = cells.neighbor_stack(cfg, st.pos, st.occ, color)
+    lower = cuda_substep.cell_lower_bounds(cfg, color, cfg.block_shape,
+                                           st.pos.device)
+    keep = cuda_substep.keep_frozen(cfg, interaction_reach(pot),
+                                    lower.movedim(0, -1),
+                                    nbrp[:, :cfg.dim].movedim(1, -1))
+    slot = torch.arange(cfg.nmax, device=st.pos.device).reshape(
+        (1, cfg.nmax) + (1,) * cfg.dim)
+    return (keep & (slot < nbr_occ[:, None])).sum((0, 1))
+
+
+def disk_tests(cfg, pot, st, colors, cells) -> int:
+    """Pair tests of the hard-disk sub-steps of ``colors`` on this run's
+    data: every move of a non-empty cell tests the other own slots and the
+    kept frozen slots (``kept_frozen``)."""
+    n = 0
+    for color in colors:
+        own = st.occ[color].long()
+        tests = torch.where(own > 0, (own - 1) + kept_frozen(
+            cfg, pot, st, color, cells), 0)
+        n += cfg.n_moves * int(tests.sum())
+    return n
+
+
+def substep_bound_ms(cfg, pot, st, inputs, cells,
+                     ops_per_test=OPS_PER_PAIR_TEST, draws_read=True,
+                     int_ops=0) -> tuple[float, str]:
     """2D: least time for one launch of the sweep's sub-steps on this run's
     data: live slots read once and the active colors' live slots written
     once, occupancies and every sub-step's random inputs read once (none
-    for the Philox form, ``draws_read`` False), the counts written; pair
-    tests the occupancies need, every live slot of the own and neighbor
-    cells for each move (``ops_per_test`` each; the NPT form's s^2 multiply
-    adds one); ``int_ops`` INT32 operations (the in-kernel draws')."""
+    for the Philox form, ``draws_read`` False), the counts written; the
+    pair tests of ``disk_tests`` (``ops_per_test`` each; the NPT form's s^2
+    multiply adds one); ``int_ops`` INT32 operations (the in-kernel
+    draws')."""
     _, perm, draws = inputs
     colors = [int(c) for c in perm[:len(draws)]]
     occ = st.occ
@@ -512,48 +643,69 @@ def substep_bound_ms(cfg, st, inputs, cells, ops_per_test=OPS_PER_PAIR_TEST,
               + 4 * cfg.dim * own_live + 16 * len(draws))
     if draws_read:
         nbytes += sum(4 * (p.numel() + d.numel()) for p, d, _ in draws)
-    ops = 0
-    for color in colors:
-        _, nbr_occ = cells.neighbor_stack(cfg, st.pos, occ, color)
-        own = occ[color].long()
-        tests = torch.where(own > 0, (own - 1) + nbr_occ.long().sum(0), 0)
-        ops += ops_per_test * cfg.n_moves * int(tests.sum())
-    return bound(nbytes, ops, int_ops)
+    return bound(nbytes, ops_per_test * disk_tests(cfg, pot, st, colors,
+                                                   cells), int_ops)
 
 
-def bound_terms(cfg, st, inputs, cells) -> int:
-    """The pair terms the frozen-cache algorithm needs for one energetic
-    sub-step on this run's data: per cell occ x (frozen live slots) for the
-    cache, and for each move that stays in its cell the frozen live slots
-    plus 2 (occ - 1) own terms."""
-    _, perm, i, _, rec = inputs
-    color = int(perm[i])
-    _, nbr_occ = cells.neighbor_stack(cfg, st.pos, st.occ, color)
-    froz = nbr_occ.long().sum(0)
+def bound_terms(cfg, pot, st, color: int, rec, cells) -> int:
+    """The pair terms one energetic sub-step of ``color`` needs on this
+    run's data, with the frozen slots the model's reach keeps
+    (``kept_frozen``) and the moves that stay in their cell (``rec``'s
+    in_cell): in 3D the frozen-cache algorithm's, occ x kept a cell for the
+    cache and kept + 2 (occ - 1) a move; in 2D a move's new and old
+    position against the kept and the other own slots; for a model without
+    energy (hard spheres) one test a move of the new position against the
+    same slots."""
+    kept = kept_frozen(cfg, pot, st, color, cells)
     own = st.occ[color].long()
+    others = (own - 1).clamp(min=0)
     moves = rec["in_cell"].long()
-    terms = own * froz + moves * (froz + 2 * (own - 1).clamp(min=0))
+    if not pot.has_energy:
+        terms = moves * (kept + others)
+    elif cfg.dim == 3:
+        terms = own * kept + moves * (kept + 2 * others)
+    else:
+        terms = 2 * moves * (kept + others)
     return int(terms.sum())
 
 
-def energetic_substep_bound_ms(cfg, st, inputs, cells, ops_per_term,
+def substep_list(cfg, inputs):
+    """(perm, start, [(draws, record), ...]) of sub-step ``inputs``: one
+    sub-step in 3D, the sub-steps of one launch in 2D (lists of draws and
+    records)."""
+    _, perm, i, draws, rec = inputs
+    if cfg.dim == 2:
+        return perm, i, list(zip(draws, rec))
+    return perm, i, [(draws, rec)]
+
+
+def ops_per_term(pot) -> int:
+    return OPS_PER_MIX_TERM if getattr(pot, "is_mixture", False) else \
+        OPS_PER_PAIR[type(pot).__name__]
+
+
+def energetic_substep_bound_ms(cfg, pot, st, inputs, cells, extra_ops=0,
                                draws_read=True, int_ops=0
                                ) -> tuple[float, str]:
-    """3D energetic sub-step: least time for one sub-step on this run's
-    data. Bytes: live slots (every plane) and occupancies read once, the
-    random inputs read once (none for the Philox forms, ``draws_read``
-    False), the own live slots' coordinates and the two per-cell maps
-    written once. Operations: ``bound_terms`` pair terms, and ``int_ops``
+    """Least time for one launch of an energetic sub-step kernel on this
+    run's data (``substep_list``'s sub-steps). Bytes: live slots (every
+    plane) and occupancies read once, the random inputs read once (none
+    for the Philox forms, ``draws_read`` False), each sub-step's own live
+    coordinates and two per-cell maps written once. Operations:
+    ``bound_terms`` pair terms at the model's ``ops_per_term`` plus
+    ``extra_ops`` each (the NPT form's s^2 multiply), and ``int_ops``
     INT32 operations (the in-kernel draws')."""
-    _, perm, i, draws, _ = inputs
-    color = int(perm[i])
+    perm, start, subs = substep_list(cfg, inputs)
     occ = st.occ
-    nbytes = (4 * st.pos.shape[1] * int(occ.sum()) + 4 * occ.numel()
-              + 4 * cfg.dim * int(occ[color].sum()) + 8 * cfg.cells_per_color)
-    if draws_read:
-        nbytes += sum(4 * t.numel() for t in draws)
-    return bound(nbytes, ops_per_term * bound_terms(cfg, st, inputs, cells),
-                 int_ops)
+    nbytes = 4 * st.pos.shape[1] * int(occ.sum()) + 4 * occ.numel()
+    terms = 0
+    for j, (draws, rec) in enumerate(subs):
+        color = int(perm[start + j])
+        nbytes += 4 * cfg.dim * int(occ[color].sum()) + 8 * cfg.cells_per_color
+        if draws_read:
+            nbytes += sum(4 * t.numel() for t in draws if t is not None)
+        terms += bound_terms(cfg, pot, st, color, rec, cells)
+    return bound(nbytes, (ops_per_term(pot) + extra_ops) * terms, int_ops)
 
 
 def shift_bound_ms(cfg, st) -> tuple[float, str]:
@@ -650,27 +802,32 @@ def run_main_path(mt, bench, libs, n_moves: int, stats: torch.Tensor,
 
 def run_energetic_main_path(mt, bench, libs, workload: str,
                             stats: torch.Tensor, rng: str = "host") -> dict:
-    """An energetic main path (lj3d, ka3d) through the user's entry point
-    with ``rng`` draws (the in-kernel ones run the Philox form, at the
-    bench's ih_k): launch counts and the sub-step kernels' counters
+    """An energetic main path (ENERGETIC) through the user's entry point,
+    ``bench.run_nvt``, with ``rng`` draws (the in-kernel ones run the
+    Philox form, at the bench's ih_k): launch counts (one sub-step launch a
+    color in 3D, one a sweep in 2D) and the sub-step kernels' counters
     (overflow cells, full pair terms) over exactly this run, then the
     invariants (for ka3d the A and B populations too) and the energy
-    anchor."""
+    anchor: the summed dE against the float64 total-energy difference
+    within ANCHOR_REL, or for an exact workload with energy (square wells)
+    ``exact_anchor``'s."""
     w = ENERGETIC[workload]
-    cfg0, pot0, start = getattr(bench, w["build"])(1_000_000, w["nmax"], 60,
-                                                   seed=0, device="cuda")
-    e0 = float(mt.total_energy_cells(cfg0, pot0, start.pos, start.occ,
-                                     torch.float64))
-    del start
+    if not w["exact"]:
+        cfg0, pot0, start, _ = bench.build_workload(workload, nmax=w["nmax"],
+                                                    device="cuda")
+        e0 = float(mt.total_energy_cells(cfg0, pot0, start.pos, start.occ,
+                                         torch.float64))
+        del start
     reset(libs)
     stats.zero_()
-    result, cfg, pot, st, warm, m = getattr(bench, w["run"])(
-        sweeps=w["sweeps"], rng=rng)
+    result, cfg, pot, st, warm, m = bench.run_nvt(
+        workload, nmax=w["nmax"], sweeps=w["sweeps"], rng=rng)
     torch.cuda.synchronize()
     launches = {name: lib.launches for name, lib in libs.items()}
     overflow_cells, full_terms = stats.tolist()
     total_sweeps = 2 * w["sweeps"]
-    expect_launches(libs, launches, w["lib"], cfg.n_colors, total_sweeps,
+    expect_launches(libs, launches, w["lib"],
+                    cfg.n_colors if cfg.dim == 3 else 1, total_sweeps,
                     philox=rng == "in-kernel")
     check_result(mt, cfg, pot, st, result)
     result.update(mt.validate_state(cfg, st, pot,
@@ -679,20 +836,98 @@ def run_energetic_main_path(mt, bench, libs, workload: str,
             [result["n_a"], result["n_b"]] != w["species"]:
         raise AssertionError(f"{workload}: A, B = {result['n_a']}, "
                              f"{result['n_b']}, want {w['species']}")
-    e1 = float(mt.total_energy_cells(cfg, pot, st.pos, st.occ, torch.float64))
     de = float(warm.delta_e.double().sum() + m.delta_e.double().sum())
-    gap = abs((e1 - e0) - de)
-    if gap > ANCHOR_REL * max(1.0, abs(e1 - e0)):
-        raise AssertionError(f"energy anchor: E {e0} -> {e1} "
-                             f"(difference {e1 - e0}), summed dE {de}")
-    n_sub = launches[w["lib"]]
-    result.update(launches=launches, energy_start=e0, energy_end=e1, summed_de=de,
-                  anchor_rel_gap=gap / max(1.0, abs(e1 - e0)),
+    n_cells = total_sweeps * cfg.n_colors
+    result.update(launches=launches, summed_de=de,
                   overflow_cells=overflow_cells,
-                  cell_launches=n_sub * cfg.cells_per_color,
-                  full_terms_per_substep=full_terms / n_sub)
+                  cell_launches=n_cells * cfg.cells_per_color,
+                  full_terms_per_substep=full_terms / n_cells)
+    if not w["exact"]:
+        e1 = float(mt.total_energy_cells(cfg, pot, st.pos, st.occ,
+                                         torch.float64))
+        gap = abs((e1 - e0) - de)
+        if gap > ANCHOR_REL * max(1.0, abs(e1 - e0)):
+            raise AssertionError(f"energy anchor: E {e0} -> {e1} "
+                                 f"(difference {e1 - e0}), summed dE {de}")
+        result.update(energy_start=e0, energy_end=e1,
+                      anchor_rel_gap=gap / max(1.0, abs(e1 - e0)))
+    elif pot.has_energy:
+        result.update(exact_anchor(bench, workload, cfg, pot, st))
     print(json.dumps(result))
     return result
+
+
+def substep_energy(cuda_substep, cells, cfg, pot, pos, occ) -> float:
+    """The total pair energy with the sub-steps' own arithmetic, float64
+    sum: every live slot against the other live slots of its cell and the
+    live slots of its neighbor cells (unwrapped in float32, mover minus
+    neighbor, squared by ``squared_norm``'s fma chain as the sub-step
+    squares), halved. For square wells every term is -eps, so a run's
+    summed dE telescopes onto it exactly. ``total_energy_cells`` cannot
+    serve: it sums d * d, whose float32 r^2 differs from the fma chain's
+    in the last bit for many pairs, and so can count a pair at the well's
+    edge otherwise than the sub-step."""
+    total = 0.0
+    dim, nmax = cfg.dim, cfg.nmax
+    shape = (nmax,) + (1,) * dim
+    slot = torch.arange(nmax, device=pos.device).reshape(shape)
+    not_self = ~torch.eye(nmax, dtype=torch.bool, device=pos.device).reshape(
+        (nmax, nmax) + (1,) * dim)
+    for color in range(cfg.n_colors):
+        own = pos[color, :dim]
+        valid = slot < occ[color][None]
+        r2 = cuda_substep.squared_norm(own[:, :, None] - own[:, None, :], 0)
+        e = torch.where(valid[:, None] & valid[None, :] & not_self,
+                        pot.pair_energy(r2), 0.0)
+        total += float(e.double().sum())
+        nbrp, nbr_occ = cells.neighbor_stack(cfg, pos, occ, color)
+        for k in range(nbrp.shape[0]):
+            nvalid = slot < nbr_occ[k][None]
+            r2 = cuda_substep.squared_norm(
+                own[:, :, None] - nbrp[k, :dim, None, :], 0)
+            e = torch.where(valid[:, None] & nvalid[None, :],
+                            pot.pair_energy(r2), 0.0)
+            total += float(e.double().sum())
+    return 0.5 * total
+
+
+def exact_anchor(bench, workload, cfg, pot, st) -> dict:
+    """Square wells: the energy of the timed run's start and end, and an
+    anchored run of PAIR_ANCHOR_SWEEPS + as many sweeps through the same
+    entry point with every shift's energy change measured
+    (``substep_energy``): its carried dE plus those changes must equal
+    E_end - E_start exactly (integer energies)."""
+    from mcjax_torch.ops import cells, cuda_shift, cuda_substep
+
+    def energy(pos, occ):
+        return substep_energy(cuda_substep, cells, cfg, pot, pos, occ)
+    start = bench.build_workload(workload, device="cuda")[2]
+    e0 = energy(start.pos, start.occ)
+    del start
+    shifts = []
+    plain_shift = cuda_shift.shift
+
+    def measured_shift(cfg_, pos, occ, axis, d):
+        out = plain_shift(cfg_, pos, occ, axis, d)
+        shifts.append(energy(out[0], out[1]) - energy(pos, occ))
+        return out
+    cuda_shift.shift = measured_shift
+    try:
+        _, _, _, a_st, a_warm, a_m = bench.run_nvt(
+            workload, sweeps=PAIR_ANCHOR_SWEEPS, rng="host")
+    finally:
+        cuda_shift.shift = plain_shift
+    a_e1 = energy(a_st.pos, a_st.occ)
+    a_de = float(a_warm.delta_e.double().sum() + a_m.delta_e.double().sum())
+    if len(shifts) != 2 * PAIR_ANCHOR_SWEEPS or \
+            a_de + sum(shifts) != a_e1 - e0:
+        raise AssertionError(f"{workload} anchor: E {e0} -> {a_e1}, summed "
+                             f"dE {a_de}, shift changes {shifts}")
+    print(f"{workload} anchor ({2 * PAIR_ANCHOR_SWEEPS} sweeps): E {e0} -> "
+          f"{a_e1} = summed dE {a_de} + shift changes {shifts}, exactly")
+    return dict(energy_start=e0, energy_end=energy(st.pos, st.occ),
+                anchored_energy_end=a_e1, anchored_summed_de=a_de,
+                anchored_shift_changes=shifts, anchor_rel_gap=0.0)
 
 
 def check_result(mt, cfg, pot, st, result) -> None:
@@ -707,76 +942,125 @@ def check_result(mt, cfg, pot, st, result) -> None:
         raise AssertionError("non-finite positions")
 
 
+def launch_3d(cuda_substep, cfg, pot):
+    """The launch helper of the 3D energetic sub-step kernel for (cfg,
+    pot)."""
+    return cuda_substep.LAUNCH_3D[cuda_substep.kernel_library(cfg, pot)]
+
+
+def kernel_launcher(cuda_substep, cfg, pot, work, occ, perm, i, draws,
+                    s2=None):
+    """A call that launches the energetic sub-step kernel of (cfg, pot)
+    once, in place on ``work``, through its launch helper (the wrapper's
+    checks and allocations stay out): in 3D sub-step i on one sub-step's
+    ``draws`` (``s2``: its NPT form); in 2D the sub-steps [i, i +
+    len(draws)) of the list ``draws`` in one launch."""
+    bs = cfg.block_shape
+    if cfg.dim == 2:
+        counts = torch.zeros((len(draws), 2), dtype=torch.int64,
+                             device="cuda")
+        de_map = torch.zeros((len(draws), *bs), dtype=torch.float32,
+                             device="cuda")
+        return lambda: cuda_substep.launch_pair2d_kernel(
+            cfg, pot, work, occ, perm, i, draws, counts, de_map)
+    launch = launch_3d(cuda_substep, cfg, pot)
+    de_map = torch.empty(bs, dtype=torch.float32, device="cuda")
+    acc_map = torch.empty(bs, dtype=torch.int32, device="cuda")
+    return lambda: launch(cfg, pot, work, occ, perm, i, *draws, de_map,
+                          acc_map, s2)
+
+
+def plain_runner(cuda_substep, cfg, pot, before, occ, perm, inputs,
+                 scale=None):
+    """A call that runs the plain version of ``inputs``' sub-steps
+    (``substep_list``) from ``before``, each on the state the last left,
+    at box scale ``scale``."""
+    plain = plain_substep(cuda_substep, pot)
+    perm, start, subs = substep_list(cfg, inputs)
+
+    def run():
+        pos = before.clone()
+        for j, (draws, _) in enumerate(subs):
+            c = int(perm[start + j])
+            pos[c] = plain(cfg, pot, c, pos, occ, *draws, scale=scale)[0]
+    return run
+
+
+def shape_line(name, cfg, shape) -> str:
+    grid = (f"; cooperative grid {shape['grid_blocks']} blocks"
+            if "grid_blocks" in shape else "")
+    return (f"{name} shape at nmax {cfg.nmax}: {shape['registers']} "
+            f"registers, {shape['local_bytes']} bytes local, shared memory "
+            f"{shape['static_smem']} static + {shape['dynamic_smem']} "
+            f"dynamic bytes a block, {shape['warps_per_sm']} resident warps"
+            f" an SM, {shape['staged_capacity']} staged slots a "
+            f"{'thread' if cfg.dim == 2 else 'warp'}{grid}")
+
+
 def time_energetic(mt, cuda_substep, cuda_shift, cells, workload, cfg, pot,
                    st, inputs) -> tuple[dict, dict, float]:
     """An energetic workload's kernel and plain-version times at the
     main-path shapes (kernels alone, launches not counted), their bounds
     on this run's data, and the time of one sub-step's random draws; the
-    sub-step kernel's NPT form is timed on the same input at scale
-    NPT_TIME_SCALE. Prints the sub-step kernel's launch shape (both forms)
-    and, for one sub-step on the timing input, the full pair terms it
-    evaluated beside the count the bound takes, and the cells that took
-    its overflow pass."""
+    sub-step kernel's NPT form, where the workload has one (NPT), is timed
+    on the same input at scale NPT_TIME_SCALE, and the shift kernel where
+    the workload has its row. Prints the sub-step kernel's launch shape
+    (each form) and, for one launch on the timing input, the full pair
+    terms it evaluated beside the count the bound takes, and the cells
+    that took its overflow pass."""
     w = ENERGETIC[workload]
     sub, sh = w["substep"], w["shift"]
     before, perm, i, draws, _ = inputs["substep"]
     work = before.clone()
-    de_map = torch.empty(cfg.block_shape, dtype=torch.float32, device="cuda")
-    acc_map = torch.empty(cfg.block_shape, dtype=torch.int32, device="cuda")
-    launch = getattr(cuda_substep, w["launch"])
     scale = npt_scale(NPT_TIME_SCALE)
     s2 = cuda_substep.scale_squared(scale, torch.float32, "cuda")
     stats = cuda_substep.kernel_stats("cuda")
-    need = bound_terms(cfg, st, inputs["substep"], cells)
-    for name, form_s2 in ((sub, None), (sub + "_npt", s2)):
-        shape = cuda_substep.kernel_shape(
-            cuda_substep.kernel_library(cfg, pot), cfg.nmax,
-            scaled=form_s2 is not None)
+    _, start, subs = substep_list(cfg, inputs["substep"])
+    need = sum(bound_terms(cfg, pot, st, int(perm[start + j]), rec, cells)
+               for j, (_, rec) in enumerate(subs))
+    forms = [(sub, None)] + ([(sub + "_npt", s2)] if workload in NPT else [])
+    lib = cuda_substep.kernel_library(cfg, pot)
+    times = {}
+    for name, form_s2 in forms:
+        shape = cuda_substep.kernel_shape(lib, cfg.nmax, cfg.cells_per_color,
+                                          scaled=form_s2 is not None,
+                                          pot=pot)
+        launch = kernel_launcher(cuda_substep, cfg, pot, work, st.occ, perm,
+                                 i, draws, form_s2)
         work.copy_(before)
         stats.zero_()
-        launch(cfg, pot, work, st.occ, perm, i, *draws, de_map, acc_map,
-               form_s2)
+        launch()
         torch.cuda.synchronize()
         overflow_cells, full_terms = stats.tolist()
-        print(f"{name} shape at nmax {cfg.nmax}: {shape['registers']} "
-              f"registers, {shape['local_bytes']} bytes local, shared memory "
-              f"{shape['static_smem']} static + {shape['dynamic_smem']} "
-              f"dynamic bytes a block, {shape['warps_per_sm']} resident warps"
-              f" an SM, {shape['staged_capacity']} staged slots a warp")
-        print(f"{name} one sub-step: {full_terms} full pair terms evaluated, "
-              f"the bound counts {need} ({full_terms / need:.4f} of them); "
-              f"{overflow_cells} of {cfg.cells_per_color} cells took the "
+        print(shape_line(name, cfg, shape))
+        terms = (f"{full_terms} full pair terms evaluated, " if cfg.dim == 3
+                 else "")
+        print(f"{name} one launch ({len(subs)} sub-step(s)): {terms}the "
+              f"bound counts {need} pair terms; {overflow_cells} of "
+              f"{len(subs) * cfg.cells_per_color} cell sub-steps took the "
               "overflow pass")
-    work.copy_(before)
-    plain = plain_substep(cuda_substep, pot)
-    color = int(perm[i])
-    times = {
-        sub: cuda_ms(lambda: launch(cfg, pot, work, st.occ, perm, i, *draws,
-                                    de_map, acc_map), TIMED_LAUNCHES),
-        sub + "_plain": cuda_ms(lambda: plain(cfg, pot, color, before,
-                                              st.occ, *draws), PLAIN_RUNS),
-    }
-    work.copy_(before)
-    times[sub + "_npt"] = cuda_ms(lambda: launch(
-        cfg, pot, work, st.occ, perm, i, *draws, de_map, acc_map, s2),
-        TIMED_LAUNCHES)
-    times[sub + "_npt_plain"] = cuda_ms(lambda: plain(
-        cfg, pot, color, before, st.occ, *draws, scale=scale), PLAIN_RUNS)
-    s_pos, s_occ, s_axis, s_d = inputs["shift"]
-    outs = (torch.empty_like(s_pos), torch.empty_like(s_occ),
-            torch.zeros((), dtype=torch.int32, device="cuda"))
-    times[sh] = cuda_ms(lambda: cuda_shift.launch_kernel(
-        cfg, s_pos, s_occ, s_axis, s_d, *outs), TIMED_LAUNCHES)
-    times[sh + "_plain"] = cuda_ms(lambda: cuda_shift.shift_rebin(
-        cfg, s_pos, s_occ, s_axis, s_d), PLAIN_RUNS)
+        work.copy_(before)
+        times[name] = cuda_ms(launch, TIMED_LAUNCHES)
+        times[name + "_plain"] = cuda_ms(plain_runner(
+            cuda_substep, cfg, pot, before, st.occ, perm, inputs["substep"],
+            scale if form_s2 is not None else None), PLAIN_RUNS)
+    bounds = {sub: energetic_substep_bound_ms(cfg, pot, st, inputs["substep"],
+                                              cells)}
+    if workload in NPT:
+        bounds[sub + "_npt"] = energetic_substep_bound_ms(
+            cfg, pot, st, inputs["substep"], cells, extra_ops=1)
+    if sh:
+        s_pos, s_occ, s_axis, s_d = inputs["shift"]
+        outs = (torch.empty_like(s_pos), torch.empty_like(s_occ),
+                torch.zeros((), dtype=torch.int32, device="cuda"))
+        times[sh] = cuda_ms(lambda: cuda_shift.launch_kernel(
+            cfg, s_pos, s_occ, s_axis, s_d, *outs), TIMED_LAUNCHES)
+        times[sh + "_plain"] = cuda_ms(lambda: cuda_shift.shift_rebin(
+            cfg, s_pos, s_occ, s_axis, s_d), PLAIN_RUNS)
+        bounds[sh] = shift_bound_ms(cfg, st)
     rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(6))
-    rng_ms = cuda_ms(lambda: rnd.substep(cfg, 0, 0, True), TIMED_LAUNCHES)
-    ops = OPS_PER_MIX_TERM if workload == "ka3d" else OPS_PER_LJ_TERM
-    bounds = {sub: energetic_substep_bound_ms(cfg, st, inputs["substep"],
-                                              cells, ops),
-              sub + "_npt": energetic_substep_bound_ms(
-                  cfg, st, inputs["substep"], cells, ops + 1),
-              sh: shift_bound_ms(cfg, st)}
+    rng_ms = cuda_ms(lambda: rnd.substep(cfg, 0, 0, pot.has_energy),
+                     TIMED_LAUNCHES)
     return times, bounds, rng_ms
 
 
@@ -830,7 +1114,7 @@ def check_npt_energetic(mt, cuda_substep, workload, cfg, pot, st) -> float:
     rule, and at s = 1 against the NVT kernel bit for bit (positions and
     both per-cell maps). Returns the largest per-cell dE difference."""
     w = ENERGETIC[workload]
-    launch = getattr(cuda_substep, w["launch"])
+    launch = launch_3d(cuda_substep, cfg, pot)
     plain = plain_substep(cuda_substep, pot)
     rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(w["seed"] + 20))
     worst = 0.0
@@ -1279,7 +1563,7 @@ def check_field_energetic_kernel(mt, bench, cuda_substep, workload, cfg, pot,
     the largest per-cell dE difference outside near ties."""
     from mcjax_torch.models import fields
     w = ENERGETIC[workload]
-    launch = getattr(cuda_substep, w["launch"])
+    launch = launch_3d(cuda_substep, cfg, pot)
     plain = plain_substep(cuda_substep, pot)
     field = path_field(bench, workload, cfg)
     rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(w["seed"] + 30))
@@ -1382,7 +1666,7 @@ def check_field_small_run_against_cpu(mt, bench) -> None:
           f"origin {g_org.tolist()}, counts; dE per sweep {g_de.tolist()})")
 
 
-def field_substep_bound_ms(cfg, st, inputs, cells, field_energy: bool,
+def field_substep_bound_ms(cfg, pot, st, inputs, cells, field_energy: bool,
                            field_ops: int) -> tuple[float, str]:
     """2D field form: ``substep_bound_ms``'s bytes, with the acceptance
     uniforms and the per-cell dE maps when the field has energy, and its
@@ -1398,12 +1682,7 @@ def field_substep_bound_ms(cfg, st, inputs, cells, field_energy: bool,
     if field_energy:
         nbytes += sum(4 * a.numel() for _, _, a in draws) \
             + 4 * cfg.cells_per_color * len(draws)
-    ops = 0
-    for color in colors:
-        _, nbr_occ = cells.neighbor_stack(cfg, st.pos, occ, color)
-        own = occ[color].long()
-        tests = torch.where(own > 0, (own - 1) + nbr_occ.long().sum(0), 0)
-        ops += OPS_PER_PAIR_TEST * cfg.n_moves * int(tests.sum())
+    ops = OPS_PER_PAIR_TEST * disk_tests(cfg, pot, st, colors, cells)
     return bound(nbytes, ops + field_ops)
 
 
@@ -1457,7 +1736,7 @@ def time_field_disk(mt, bench, cuda_substep, cells, cfg, pot, st, inputs
                                             origin=origin)[0]
         moves += int(rec["in_cell"].sum())
     bounds["substep_field"] = field_substep_bound_ms(
-        cfg, st, (before, perm, fdraws), cells, True,
+        cfg, pot, st, (before, perm, fdraws), cells, True,
         moves * field_ops_per_move(cuda_substep, field, 2, False, True))
     return times, bounds
 
@@ -1470,7 +1749,7 @@ def time_field_energetic(mt, bench, cuda_substep, cells, workload, cfg, pot,
     the NVT form's pair terms on this input plus field_ops_per_move for
     each move that stays in its cell and out of the walls; prints its
     launch shape."""
-    w, fw = ENERGETIC[workload], FIELD[workload]
+    fw = FIELD[workload]
     sub = fw["substep"]
     before, perm, i, draws, _ = inputs["substep"]
     field = path_field(bench, workload, cfg)
@@ -1484,7 +1763,7 @@ def time_field_energetic(mt, bench, cuda_substep, cells, workload, cfg, pot,
           f" {shape['static_smem']} static + {shape['dynamic_smem']} "
           f"dynamic bytes a block, {shape['warps_per_sm']} resident "
           f"warps an SM, {shape['staged_capacity']} staged slots a warp")
-    launch = getattr(cuda_substep, w["launch"])
+    launch = launch_3d(cuda_substep, cfg, pot)
     plain = plain_substep(cuda_substep, pot)
     work = before.clone()
     maps = (torch.empty(cfg.block_shape, device="cuda"),
@@ -1502,9 +1781,8 @@ def time_field_energetic(mt, bench, cuda_substep, cells, workload, cfg, pot,
     times[sub + "_plain"] = cuda_ms(lambda: plain(
         cfg, pot, color, before, st.occ, *draws, field=field, origin=origin),
         PLAIN_RUNS)
-    ops = OPS_PER_MIX_TERM if workload == "ka3d" else OPS_PER_LJ_TERM
-    b_ms, by = energetic_substep_bound_ms(cfg, st, (before, perm, i, draws,
-                                                    rec), cells, ops)
+    b_ms, by = energetic_substep_bound_ms(cfg, pot, st, (before, perm, i,
+                                                         draws, rec), cells)
     field_ms = 1e3 * int(rec["in_cell"].sum()) * field_ops_per_move(
         cuda_substep, field, 3, workload == "ka3d", False) \
         / PEAK_F32_OPS_PER_S
@@ -1721,7 +1999,7 @@ def check_philox_energetic(cuda_substep, workload, cfg, pot, st):
     plain version's record, the key)."""
     from mcjax_torch.ops.random import PhiloxRandoms
     w = ENERGETIC[workload]
-    launch = getattr(cuda_substep, w["launch"])
+    launch = launch_3d(cuda_substep, cfg, pot)
     plain = plain_substep(cuda_substep, pot)
     rnd = PhiloxRandoms(PHILOX_SEED + w["seed"], "cuda", PHILOX_IH_K)
     perm, _, _ = rnd.schedule(cfg, st.sweep)
@@ -1899,12 +2177,12 @@ def time_philox(mt, cuda_substep, cells, cfg, pot, st, inputs, energetic):
                                                 p_u, dsp)[0]
     times["substep_philox_plain"] = cuda_ms(plain_2d, PLAIN_RUNS)
     bounds["substep_philox"] = substep_bound_ms(
-        cfg, st, (before, perm, draws), cells, draws_read=False,
+        cfg, pot, st, (before, perm, draws), cells, draws_read=False,
         int_ops=philox_int_ops(cfg, st.occ, [int(c) for c in perm], False, 0))
     for workload, (ecfg, epot, est, timing) in energetic.items():
         name = PHILOX_ROWS[workload]
         e_before, e_perm, i, e_draws, rec, e_key = timing
-        launch = getattr(cuda_substep, ENERGETIC[workload]["launch"])
+        launch = launch_3d(cuda_substep, ecfg, epot)
         e_ph = cuda_substep.philox_args(ecfg, e_key, True)
         de_map = torch.empty(ecfg.block_shape, dtype=torch.float32,
                              device="cuda")
@@ -1932,15 +2210,162 @@ def time_philox(mt, cuda_substep, cells, cfg, pot, st, inputs, energetic):
         times[name + "_plain"] = cuda_ms(lambda: plain(
             ecfg, epot, color, e_before, est.occ,
             *rnd.move_draws(ecfg, e_key.sweep, i, color, True)), PLAIN_RUNS)
-        ops = OPS_PER_MIX_TERM if workload == "ka3d" else OPS_PER_LJ_TERM
         bounds[name] = energetic_substep_bound_ms(
-            ecfg, est, timing[:5], cells, ops, draws_read=False,
+            ecfg, epot, est, timing[:5], cells, draws_read=False,
             int_ops=philox_int_ops(ecfg, est.occ, [color], True, e_key.ih_k))
     for name in bounds:
         print(f"{name}: {times[name]:.6f} ms against its host-random twin "
               f"{times[name + '_twin']:.6f} ms on the same state and draws "
               f"({smi_line()})")
     return times, bounds
+
+
+# --- The pair models: the main paths hs3d, sw3d and sw2d are ENERGETIC's;
+# here the smooth models in 2D and 3D at 1M and in small runs.
+
+# The smooth models of the 1M checks; ``smooth_model`` builds each.
+SMOOTH_3D = ("wca", "soft", "yukawa", "morse", "poly")
+SMOOTH_2D = ("lj", "wca", "soft", "yukawa", "morse", "poly")
+SMOOTH = dict(n=1_000_000, rho=0.8, phi=0.5, n_moves=60, step=0.12,
+              beta=0.5, small_rho=0.5)
+
+
+def smooth_model(mt, name):
+    """The port's smooth model ``name``: WCA, SoftSphere (n 12, r_cut 2.5),
+    Yukawa (kappa 2, r_cut 3.0), Morse (a 5, r0 1, r_cut 2.5, shifted),
+    a PolynomialPotential fitted (degree 8) to LJ shifted at r_cut 2.0 on
+    400 samples in [0.85, 2.0], or LJ (r_cut 2.5)."""
+    if name == "poly":
+        r = [0.85 + k * (2.0 - 0.85) / 399 for k in range(400)]
+        shift = 4.0 * (2.0 ** -12 - 2.0 ** -6)
+        e = [4.0 * (x ** -12 - x ** -6) - shift for x in r]
+        return mt.fit_pair_polynomial(r, e, degree=8, r_cut=2.0)
+    return {"wca": mt.WCA(), "soft": mt.SoftSphere(),
+            "yukawa": mt.Yukawa(r_cut=3.0), "morse": mt.Morse(),
+            "lj": mt.LennardJones()}[name]
+
+
+def smooth_config(mt, bench, cuda_substep, name, dim, n, rho=None,
+                  n_moves=None, device="cuda"):
+    """A smooth model's system by mcjax's CLI rules (``bench.build_pair``)
+    at density ``rho`` (3D; SMOOTH's rho by default) or SMOOTH's phi (2D),
+    lattice start; nmax the CLI's auto_nmax, but at least 8 (the lattice
+    start puts up to 2^dim sites in a cell) and at most the kernel's."""
+    pot = smooth_model(mt, name)
+    limit = cuda_substep.KERNEL_NMAX_LJ if dim == 3 else \
+        cuda_substep.KERNEL_NMAX
+    kw = dict(rho=rho or SMOOTH["rho"]) if dim == 3 else \
+        dict(phi=SMOOTH["phi"])
+    auto = bench.pair_config(pot, dim, n, 1, 0.1, 1.0, **kw).nmax
+    nmax = min(limit, max(8, auto))
+    return bench.build_pair(pot, dim, n, n_moves or SMOOTH["n_moves"],
+                            SMOOTH["step"], SMOOTH["beta"], **kw, nmax=nmax,
+                            device=device)
+
+
+def hold_sweep_2d(cuda_substep, cfg, pot, st, perm, draws):
+    """2D: one launch of a sweep's four sub-steps against four plain
+    sub-steps, bit for bit in positions, occupancies, counts and each
+    sub-step's dE (square wells: integer energies). Returns the sub-step
+    inputs (state before, perm, 0, draws, the plain version's records)."""
+    before, occ0 = st.pos.clone(), st.occ.clone()
+    want = st.pos.clone()
+    plain, recs = [], []
+    for i, d in enumerate(draws):
+        color = int(perm[i])
+        rec = {}
+        own, de, acc, prop = cuda_substep.color_substep(cfg, pot, color,
+                                                        want, st.occ, *d,
+                                                        rec)
+        want[color] = own
+        plain.append((float(de), int(acc), int(prop)))
+        recs.append(rec)
+    de, acc, prop = cuda_substep.substeps(cfg, pot, st.pos, st.occ, perm,
+                                          draws)
+    torch.cuda.synchronize()
+    got = list(zip(de.tolist(), acc.tolist(), prop.tolist()))
+    if not (bitwise_equal(st.pos, want) and bitwise_equal(st.occ, occ0)
+            and got == plain):
+        raise AssertionError(f"{type(pot).__name__} 2D form, one launch of "
+                             f"4 sub-steps, != 4 plain sub-steps: (dE, "
+                             f"accepted, proposed) {got} against {plain}")
+    print(f"{type(pot).__name__} 2D form, one launch of 4 sub-steps (colors "
+          f"{perm.tolist()}): bitwise equal to 4 plain sub-steps in pos, "
+          f"occ, dE, accepted and proposed {got}")
+    return before, perm, 0, draws, recs
+
+
+def check_smooth_models(mt, bench, cuda_substep, cells):
+    """Each smooth model at N = 1,000,000, in 3D (SMOOTH_3D) and 2D
+    (SMOOTH_2D): one warm-up sweep through the kernels from the lattice
+    (its launches counted), then one sub-step through the kernel against
+    its plain version under the near-tie rule, timed beside it, with its
+    bound and the cells that took the overflow pass. Returns the kernels
+    line's entries, by row name."""
+    rows = {}
+    stats = cuda_substep.kernel_stats("cuda")
+    for dim, names in ((3, SMOOTH_3D), (2, SMOOTH_2D)):
+        for name in names:
+            cfg, pot, st = smooth_config(mt, bench, cuda_substep, name, dim,
+                                         SMOOTH["n"])
+            rnd = mt.TorchRandoms(torch.Generator("cuda").manual_seed(21))
+            lib = cuda_substep.kernel_library(cfg, pot)
+            n0 = lib.launches
+            st, _ = mt.run_sweeps(cfg, pot, st, 1, rnd)  # the model's path
+            launches = lib.launches - n0
+            if launches != (8 if dim == 3 else 1):
+                raise AssertionError(f"{name} {dim}D: {launches} launches "
+                                     f"of {lib.name} in a sweep")
+            perm, _, _ = rnd.schedule(cfg, st.sweep)
+            draws = rnd.substep(cfg, st.sweep, 0, True)
+            before = st.pos.clone()
+            stats.zero_()
+            n_diff, n_ties, gap, rec = compare_energetic_substep(
+                cfg, pot, cuda_substep, st.pos, st.occ, perm, 0, draws,
+                before.clone(), st.occ)
+            ovf_cells = int(stats[0])
+            row = f"substep_{name}{dim}d"
+            inputs = (before, perm, 0, draws, rec) if dim == 3 else \
+                (before, perm, 0, [draws], [rec])
+            ms = cuda_ms(kernel_launcher(cuda_substep, cfg, pot,
+                                         before.clone(), st.occ, perm, 0,
+                                         inputs[3]), TIMED_LAUNCHES)
+            plain_ms = cuda_ms(plain_runner(cuda_substep, cfg, pot, before,
+                                            st.occ, perm, inputs),
+                               PLAIN_RUNS)
+            bnd = energetic_substep_bound_ms(cfg, pot, st, inputs, cells)
+            print(shape_line(row, cfg, cuda_substep.kernel_shape(
+                lib, cfg.nmax, cfg.cells_per_color, pot=pot)))
+            print(f"{row} ({type(pot).__name__}, {cfg.cells_per_side} cells "
+                  f"a side of {cfg.cell_width:.4f}, nmax {cfg.nmax}, N "
+                  f"{cfg.n_atoms}): one sub-step equal to its plain version"
+                  f" outside near ties (differing cells {n_diff}, near-tie "
+                  f"cells {n_ties}); |dE kernel - plain| {gap:.3e}; "
+                  f"{ovf_cells} of {cfg.cells_per_color} cells took the "
+                  f"overflow pass; kernel {ms:.6f} ms, plain {plain_ms:.3f} "
+                  f"ms, bound {bnd[0]:.6f} ms ({bnd[1]})")
+            rows[row] = dict(err=gap, ms=ms, plain_ms=plain_ms, bound=bnd,
+                             dim=dim, launches=launches)
+            del st, before, draws, rec, inputs
+    return rows
+
+
+def check_smooth_small_runs(mt, bench, cuda_substep, cuda_shift) -> None:
+    """The smooth models' small runs (``small_run_against_cpu`` under the
+    near-tie rule, PAIR_SMALL's size), in 3D at SMOOTH's small_rho and in
+    2D at its phi."""
+    sm = PAIR_SMALL
+    for dim, names in ((3, SMOOTH_3D), (2, SMOOTH_2D)):
+        for name in names:
+            cfg, pot, st = smooth_config(mt, bench, cuda_substep, name, dim,
+                                         sm["n"], rho=SMOOTH["small_rho"],
+                                         n_moves=sm["n_moves"])
+            cpu = smooth_config(mt, bench, cuda_substep, name, dim, sm["n"],
+                                rho=SMOOTH["small_rho"],
+                                n_moves=sm["n_moves"], device="cpu")[2]
+            small_run_against_cpu(mt, cuda_substep, cuda_shift, cfg, pot, st,
+                                  cpu, sm["seed"], sm["sweeps"], False,
+                                  f"{name} {dim}D")
 
 
 def main() -> int:
@@ -1963,7 +2388,9 @@ def main() -> int:
             "substep_field": cuda_substep.LIB_FIELD,
             "substep_philox": cuda_substep.LIB_PHILOX,
             "substep_lj": cuda_substep.LIB_LJ,
-            "substep_mix": cuda_substep.LIB_MIX, "shift": cuda_shift.LIB}
+            "substep_mix": cuda_substep.LIB_MIX,
+            "substep_pair": cuda_substep.LIB_PAIR,
+            "substep_pair2d": cuda_substep.LIB_PAIR2D, "shift": cuda_shift.LIB}
     build_s = _build.build_all(list(libs.values()))
     each = ", ".join(f"{name} {lib.build_seconds:.1f} s"
                      for name, lib in libs.items()
@@ -1998,35 +2425,42 @@ def main() -> int:
     err["substep_philox"], philox_inputs = check_philox_disk_kernel(
         cuda_substep, cfg, pot, dataclasses.replace(st, pos=st.pos.clone()))
     check_philox_small_run_against_cpu(mt, bench)
-    # 3D Lennard-Jones and the Kob-Andersen mixture
+    # 3D Lennard-Jones, the Kob-Andersen mixture (with their NPT, field
+    # and Philox forms), 3D hard spheres and square wells, 2D square wells
     energetic = {}
     philox_energetic = {}
     field_timing = {}
     path_cfgs = {"hard-disk": cfg}
-    for workload in ENERGETIC:
+    for workload, w in ENERGETIC.items():
         ecfg, epot, est, eerr, einputs = check_energetic_against_plain(
-            mt, cuda_substep, cuda_shift, workload)
+            mt, bench, cuda_substep, cuda_shift, workload)
         err.update(eerr)
-        check_energetic_small_run_against_cpu(mt, cuda_substep, cuda_shift,
-                                              workload)
-        err[ENERGETIC[workload]["substep"] + "_npt"] = check_npt_energetic(
-            mt, cuda_substep, workload, ecfg, epot,
-            dataclasses.replace(est, pos=est.pos.clone()))
+        check_energetic_small_run_against_cpu(mt, bench, cuda_substep,
+                                              cuda_shift, workload)
+        if workload in NPT:
+            err[w["substep"] + "_npt"] = check_npt_energetic(
+                mt, cuda_substep, workload, ecfg, epot,
+                dataclasses.replace(est, pos=est.pos.clone()))
         energetic[workload] = time_energetic(mt, cuda_substep, cuda_shift,
                                              cells, workload, ecfg, epot,
                                              est, einputs)
-        err[FIELD[workload]["substep"]] = check_field_energetic_kernel(
-            mt, bench, cuda_substep, workload, ecfg, epot,
-            dataclasses.replace(est, pos=est.pos.clone()))
-        field_timing[workload] = time_field_energetic(
-            mt, bench, cuda_substep, cells, workload, ecfg, epot, est,
-            einputs)
-        err[PHILOX_ROWS[workload]], ptiming = check_philox_energetic(
-            cuda_substep, workload, ecfg, epot,
-            dataclasses.replace(est, pos=est.pos.clone()))
-        philox_energetic[workload] = (ecfg, epot, est, ptiming)
+        if workload in FIELD:
+            err[FIELD[workload]["substep"]] = check_field_energetic_kernel(
+                mt, bench, cuda_substep, workload, ecfg, epot,
+                dataclasses.replace(est, pos=est.pos.clone()))
+            field_timing[workload] = time_field_energetic(
+                mt, bench, cuda_substep, cells, workload, ecfg, epot, est,
+                einputs)
+        if workload in PHILOX_ROWS:
+            err[PHILOX_ROWS[workload]], ptiming = check_philox_energetic(
+                cuda_substep, workload, ecfg, epot,
+                dataclasses.replace(est, pos=est.pos.clone()))
+            philox_energetic[workload] = (ecfg, epot, est, ptiming)
         path_cfgs[workload] = ecfg
         del est, einputs
+    # the smooth pair models at 1M and in small runs
+    check_smooth_small_runs(mt, bench, cuda_substep, cuda_shift)
+    smooth_rows = check_smooth_models(mt, bench, cuda_substep, cells)
 
     # Kernel and plain-version times at the main-path shapes. Kernels
     # alone: the wrappers' checks, allocations and count reductions stay
@@ -2098,9 +2532,9 @@ def main() -> int:
     reset(libs)
 
     bounds = {
-        "substep": substep_bound_ms(cfg, st, inputs["substep"], cells),
-        "substep_npt": substep_bound_ms(cfg, st, inputs["substep"], cells,
-                                        OPS_PER_PAIR_TEST + 1),
+        "substep": substep_bound_ms(cfg, pot, st, inputs["substep"], cells),
+        "substep_npt": substep_bound_ms(cfg, pot, st, inputs["substep"],
+                                        cells, OPS_PER_PAIR_TEST + 1),
         "shift": shift_bound_ms(cfg, st),
     }
     for e_times, e_bounds, _ in energetic.values():
@@ -2123,7 +2557,7 @@ def main() -> int:
     philox8 = run_main_path(mt, bench, libs, 8, stats, rng="in-kernel")
     philox_paths = {workload: run_energetic_main_path(
         mt, bench, libs, workload, cuda_substep.kernel_stats("cuda"),
-        rng="in-kernel") for workload in ENERGETIC}
+        rng="in-kernel") for workload in PHILOX_ROWS}
     check_resume(mt, bench)
     henderson = check_henderson(mt, libs)
     npt_paths = {workload: run_npt_main_path(
@@ -2154,14 +2588,19 @@ def main() -> int:
               f"{paths[workload]['acceptance']:.6f}); energy anchor gap "
               f"{res['anchor_rel_gap']:.3e} ({smi})")
     for workload, res in paths.items():
+        anchor = (f", energy anchor gap {res['anchor_rel_gap']:.3e}"
+                  if "anchor_rel_gap" in res else "")
+        depth = (f", contact depth {res['overlap_depth_ulps']:.2f} ulps of "
+                 "L/2" if ENERGETIC[workload]["exact"] else "")
         print(f"{workload}, n_moves {res['n_moves']}: {res['value']:.6e} "
               f"moves/s, {res['ms_per_sweep']:.6f} ms/sweep, acceptance "
-              f"{res['acceptance']:.6f}, energy anchor gap "
-              f"{res['anchor_rel_gap']:.3e} ({smi})")
+              f"{res['acceptance']:.6f}{anchor}{depth} ({smi})")
+        terms = ("" if ENERGETIC[workload]["lib"] == "substep_pair2d" else
+                 f"; {res['full_terms_per_substep']:.1f} full pair terms per"
+                 " sub-step")
         print(f"{workload} main path: {res['overflow_cells']} of "
               f"{res['cell_launches']} cell sub-steps took the overflow "
-              f"pass; {res['full_terms_per_substep']:.1f} full pair terms "
-              "per sub-step")
+              f"pass{terms}")
     print(f"per sweep at n_moves 64 ({smi}): substep kernel 1 x "
           f"{times['substep']:.6f} ms (4 sub-steps), random draws 4 x "
           f"{rng_ms:.6f} ms, "
@@ -2169,6 +2608,8 @@ def main() -> int:
           f"{times['shift']:.6f} ms")
     for workload, (_, _, e_rng_ms) in energetic.items():
         w = ENERGETIC[workload]
+        if not w["shift"]:
+            continue
         print(f"per {workload} sweep ({smi}): substep kernel 8 x "
               f"{times[w['substep']]:.6f} ms, random draws 8 x "
               f"{e_rng_ms:.6f} ms, 3D shift kernel {times[w['shift']]:.6f} "
@@ -2216,6 +2657,10 @@ def main() -> int:
         sub = fw["substep"]
         print(f"{sub}: {times[sub]:.6f} ms against its NVT form "
               f"{times[sub + '_nvt']:.6f} ms on the same input ({smi})")
+    for row, r in smooth_rows.items():
+        times[row], times[row + "_plain"] = r["ms"], r["plain_ms"]
+        bounds[row] = r["bound"]
+        err[row] = r["err"]
     for name, (b, by) in bounds.items():
         print(f"{name}: kernel {times[name]:.6f} ms, bound {b:.6f} ms ({by}),"
               f" plain {times[name + '_plain']:.3f} ms")
@@ -2266,8 +2711,10 @@ def main() -> int:
                 "shift": main64["launches"]["shift"]}
     for workload, res in paths.items():
         w = ENERGETIC[workload]
+        sources[w["substep"]] = w["source"]
         launches[w["substep"]] = res["launches"][w["lib"]]
-        launches[w["shift"]] = res["launches"]["shift"]
+        if w["shift"]:
+            launches[w["shift"]] = res["launches"]["shift"]
     # NPT forms: the lj3d and ka3d NPT main paths; the 2D form, whose main
     # path (1M disks) is NVT, the hard-disk NPT run
     launches["substep_npt"] = henderson["launches"]
@@ -2277,6 +2724,15 @@ def main() -> int:
     for workload, res in field_paths.items():
         launches[FIELD[workload]["substep"]] = res["field_launches"]
     launches["substep_philox"] = philox64["launches"]["substep_philox"]
+    for row in ("substep_hs3d", "substep_sw3d"):
+        replaces[row] = replaces["substep_lj3d"]
+    replaces["substep_sw2d"] = replaces["substep"]
+    for row, r in smooth_rows.items():
+        sources[row] = "substep_pair.cu" if r["dim"] == 3 else \
+            "substep_pair2d.cu"
+        replaces[row] = replaces["substep_lj3d"] if r["dim"] == 3 else \
+            replaces["substep"]
+        launches[row] = r["launches"]
     for workload, res in philox_paths.items():
         launches[PHILOX_ROWS[workload]] = \
             res["launches"][ENERGETIC[workload]["lib"]]

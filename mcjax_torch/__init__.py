@@ -1,8 +1,10 @@
 """mcjax_torch: the PyTorch / CUDA port of mcjax for NVIDIA Hopper.
 
 Checkerboard-decomposed, cell-list Metropolis Monte Carlo on color-blocked
-slabs, with the JAX package's state layout: 2D hard disks, 3D Lennard-Jones
-and 3D binary Lennard-Jones mixtures (Kob-Andersen) so far, in the NVT
+slabs, with the JAX package's state layout: hard disks and spheres, every
+single-species pair model of the JAX package (Lennard-Jones, WCA, soft
+spheres, square wells, Yukawa, Morse, polynomials in 1/r^2) in 2D and 3D,
+and 3D binary Lennard-Jones mixtures (Kob-Andersen), in the NVT
 ensemble and in the NPT one (ln-V volume moves, ``run_npt``), and under
 external one-body fields (traps, gravity, slit walls:
 ``mcjax_torch.models.fields``, ``mcjax_torch.ops.extfield``), with the
@@ -19,11 +21,15 @@ caller passes ``device="cpu"``.
 This package imports torch, numpy and the standard library only.
 """
 
-from mcjax_torch.convert import state_from_numpy, state_to_numpy
+from mcjax_torch.convert import (potential_from_spec, potential_to_spec,
+                                 state_from_numpy, state_to_numpy)
 from mcjax_torch.core.config import SimConfig
 from mcjax_torch.core.state import SimState, init_state, zeros_state
 from mcjax_torch.models.mixtures import LJMixture, kob_andersen
-from mcjax_torch.models.potentials import HardSphere, LennardJones
+from mcjax_torch.models.potentials import (WCA, HardSphere, LennardJones,
+                                           Morse, PolynomialPotential,
+                                           SoftSphere, SquareWell, Yukawa,
+                                           fit_pair_polynomial)
 from mcjax_torch.ops.mixture import init_mixture_state, unbin_mixture
 from mcjax_torch.ops.npt import (NPTMetrics, NPTState, init_npt, npt_sweep,
                                  run_npt)
@@ -38,21 +44,30 @@ __all__ = [
     "HardSphere",
     "LJMixture",
     "LennardJones",
+    "Morse",
     "NPTMetrics",
     "NPTState",
     "PhiloxRandoms",
+    "PolynomialPotential",
     "RandomProvider",
     "SimConfig",
     "SimState",
+    "SoftSphere",
+    "SquareWell",
     "StateInvariantError",
     "SweepMetrics",
     "TorchRandoms",
+    "WCA",
+    "Yukawa",
+    "fit_pair_polynomial",
     "init_mixture_state",
     "init_npt",
     "init_state",
     "kob_andersen",
     "mc_sweep",
     "npt_sweep",
+    "potential_from_spec",
+    "potential_to_spec",
     "run_npt",
     "run_sweeps",
     "state_from_numpy",

@@ -17,6 +17,22 @@ run through the port's CUDA kernels, with the same JSON keys:
   width 2.6140 in 8 colors of 18^3), species B where i % 5 == 4, stratified
   start, gaussian proposals of step 0.09, n_moves 60, nmax 34, 100 sweeps.
 
+Three pair-model workloads at mcjax's CLI rules (``mcjax/cli.py:357-392``:
+cells per side the box over max(r_cut, 1), rounded down to even, unless
+stated; nmax ``SimConfig.auto_nmax``; uniform proposals for a model
+without energy, gaussian otherwise), lattice start, host draws (their
+kernels have no Philox form yet):
+
+* ``--workload hs3d``: 3D hard spheres of diameter 1 at phi 0.45, N =
+  1,000,000 (L = 105.18), cells about 2 diameters wide as ``--wfac 2.0``
+  (52 per side, 26^3 a color), nmax 22, uniform step 0.12, n_moves 60.
+* ``--workload sw3d``: 3D square wells (eps 1, diameter 1, lam 1.5) at rho
+  0.7, beta 0.5, N = 1,000,000 (L = 112.62, 74 cells per side of 1.522),
+  nmax 8, gaussian step 0.10, n_moves 60.
+* ``--workload sw2d``: the hard-disk cell (N = 1,048,576, phi 0.5, 4 x
+  320^2 cells, nmax 7, uniform step 0.18, n_moves 64) with square wells of
+  lam 1.5 at beta 0.5.
+
 With ``--pressure P`` the workload runs in the NPT ensemble
 (``mcjax_torch.ops.npt.run_npt``, the counterpart of mcjax's ``--pressure``,
 ``--dlnv-max`` and ``--volume-every``): an ln-V volume move after every
@@ -47,7 +63,8 @@ forms' Philox draws are later work.
 Timing uses CUDA events around a timed run of ``--sweeps`` sweeps that
 follows a warm-up run of the same length.
 
-    python -m mcjax_torch.bench [--workload {hard-disk,lj3d,ka3d}] [--n N]
+    python -m mcjax_torch.bench [--workload {hard-disk,lj3d,ka3d,hs3d,sw3d,
+                                             sw2d}] [--n N]
                                 [--phi 0.5] [--wfac 2.0] [--nmax NMAX]
                                 [--moves M] [--sweeps S] [--seed 0]
                                 [--pressure P [--dlnv-max 0.02]
@@ -90,7 +107,8 @@ from mcjax_torch.core.device import resolve_device
 from mcjax_torch.core.state import SimState, init_state
 from mcjax_torch.models import fields
 from mcjax_torch.models.mixtures import LJMixture, kob_andersen
-from mcjax_torch.models.potentials import HardSphere, LennardJones, Potential
+from mcjax_torch.models.potentials import (HardSphere, LennardJones,
+                                           Potential, SquareWell)
 from mcjax_torch.ops import cells
 from mcjax_torch.ops.extfield import (field_violations, run_field_sweeps,
                                       total_field_energy_cells)
@@ -104,11 +122,15 @@ REFERENCE_MOVES_PER_S = 2.25e4  # BASELINE.md
 RNG_MODES = ("in-kernel", "host")
 # Irwin-Hall order of gaussian proposals: mcjax's bench sets 8 for its 3D
 # workloads and keeps the library default, 12, elsewhere.
-DEFAULT_IH_K = {"hard-disk": 12, "lj3d": 8, "ka3d": 8}
+DEFAULT_IH_K = {"hard-disk": 12, "lj3d": 8, "ka3d": 8, "hs3d": 12,
+                "sw3d": 12, "sw2d": 12}
 HOST_ONLY_NOTE = {
     "npt": "host draws: mcjax has no in-kernel-RNG NPT form",
     "field": "host draws: the field forms take no in-kernel draws yet",
+    "pair": "host draws: the pair models' kernels have no Philox form yet",
 }
+# The pair-model workloads run their kernels' host-random form only.
+PAIR_WORKLOADS = ("hs3d", "sw3d", "sw2d")
 
 
 def make_randoms(rng: str, seed: int, device: torch.device, ih_k: int):
@@ -179,6 +201,45 @@ def build_ka3d(n_atoms: int, nmax: int, n_moves: int, seed: int = 0,
     state = init_mixture_state(cfg, cells.stratified_positions(cfg, dev),
                                species, dev)
     return cfg, ka, state
+
+
+def pair_config(pot: Potential, dim: int, n_atoms: int, n_moves: int,
+                step_size: float, beta: float, *, rho: float | None = None,
+                phi: float | None = None, cells_per_side: int | None = None,
+                nmax: int | None = None, seed: int = 0) -> SimConfig:
+    """A pair model's configuration by mcjax's CLI rules (``mcjax/cli.py:
+    357-392``): the box from the number density ``rho`` or the packing
+    fraction ``phi`` (of unit diameters), cells per side the box over
+    max(r_cut, 1) rounded down to even unless given, nmax
+    ``SimConfig.auto_nmax`` unless given, uniform proposals for a model
+    without energy and gaussian ones otherwise."""
+    if rho is not None:
+        box = (n_atoms / rho) ** (1.0 / dim)
+    elif dim == 2:
+        box = math.sqrt(n_atoms * math.pi / 4.0 / phi)
+    else:
+        box = (n_atoms * math.pi / 6.0 / phi) ** (1.0 / 3.0)
+    cps = cells_per_side
+    if cps is None:
+        cps = int((box + 1e-9) // max(pot.r_cut, 1.0))
+        cps -= cps % 2
+    nmax = nmax or SimConfig.auto_nmax(dim, n_atoms, box, cps)
+    cfg = SimConfig(dim=dim, n_atoms=n_atoms, box_length=box,
+                    cells_per_side=cps, nmax=nmax, n_moves=n_moves,
+                    proposal="gaussian" if pot.has_energy else "uniform",
+                    step_size=step_size, beta=beta, seed=seed)
+    cfg.validate_against(pot.r_cut)
+    return cfg
+
+
+def build_pair(pot: Potential, dim: int, n_atoms: int, n_moves: int,
+               step_size: float, beta: float, *,
+               device: str | torch.device | None = None, **kw
+               ) -> tuple[SimConfig, Potential, SimState]:
+    """``pair_config``'s system (its keyword arguments in ``kw``) with a
+    lattice start, on ``device``."""
+    cfg = pair_config(pot, dim, n_atoms, n_moves, step_size, beta, **kw)
+    return cfg, pot, init_state(cfg, device)
 
 
 def timed_run(cfg: SimConfig, pot: Potential, state: SimState, sweeps: int,
@@ -374,12 +435,37 @@ def build_workload(workload: str, n_atoms: int | None = None,
                                 n_moves or 64, seed, device)
         label = ("hard-disk MC trial moves/sec/chip (N=%d, "
                  f"phi={phi:.2f}, cuda)")
+    elif workload == "hs3d":
+        n = n_atoms or 1_000_000
+        box = (n * math.pi / 6.0 / 0.45) ** (1.0 / 3.0)
+        cps = int(box // wfac)
+        cfg, pot, state = build_pair(
+            HardSphere(1.0), 3, n, n_moves or 60, 0.12, 1.0, phi=0.45,
+            cells_per_side=cps - cps % 2, nmax=nmax, seed=seed,
+            device=device)
+        label = "3D hard-sphere MC trial moves/sec/chip (N=%d, phi=0.45, cuda)"
+    elif workload == "sw3d":
+        cfg, pot, state = build_pair(
+            SquareWell(1.0, 1.0, 1.5), 3, n_atoms or 1_000_000,
+            n_moves or 60, 0.10, 0.5, rho=0.7, nmax=nmax, seed=seed,
+            device=device)
+        label = ("3D square-well MC trial moves/sec/chip (N=%d, rho=0.7, "
+                 "beta=0.5, cuda)")
+    elif workload == "sw2d":
+        cfg, _, state = build(n_atoms or 1 << 20, phi, wfac, nmax or 7,
+                              n_moves or 64, seed, device)
+        pot = SquareWell(1.0, 1.0, 1.5)
+        cfg = cfg.replace(beta=0.5)
+        cfg.validate_against(pot.r_cut)
+        label = ("2D square-well MC trial moves/sec/chip (N=%d, "
+                 f"phi={phi:.2f}, beta=0.5, cuda)")
     else:
         raise ValueError(f"unknown workload {workload!r}")
     return cfg, pot, state, label % cfg.n_atoms
 
 
-DEFAULT_SWEEPS = {"hard-disk": 100, "lj3d": 30, "ka3d": 100}
+DEFAULT_SWEEPS = {"hard-disk": 100, "lj3d": 30, "ka3d": 100, "hs3d": 30,
+                  "sw3d": 30, "sw2d": 30}
 # Cell capacity of a field run: slit walls hold the same N in less volume
 # (3.3 % less at lj3d's box with walls 1.25 inside each face, 3.7 % at
 # ka3d's), the start is the lattice compressed along the wall axis (cells
@@ -555,7 +641,8 @@ def run_bench_field(workload: str, field, n_atoms: int | None = None,
 
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=("hard-disk", "lj3d", "ka3d"),
+    ap.add_argument("--workload", choices=("hard-disk", "lj3d", "ka3d",
+                                           *PAIR_WORKLOADS),
                     default="hard-disk")
     ap.add_argument("--n", type=int, default=None,
                     help="atoms (1048576 hard-disk, 1000000 lj3d and ka3d)")
@@ -588,9 +675,10 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--field-axis", type=int, default=None,
                     help="axis of --gravity / --walls (default: the last)")
     ap.add_argument("--in-kernel-rng", dest="rng", action="store_const",
-                    const="in-kernel", default="in-kernel",
+                    const="in-kernel", default=None,
                     help="draws generated in the sub-step kernels (Philox; "
-                         "the default, as mcjax's bench)")
+                         "the default, as mcjax's bench, but for the pair "
+                         "workloads, whose kernels take host draws only)")
     ap.add_argument("--host-rng", dest="rng", action="store_const",
                     const="host", help="draws made on the device by "
                                        "PyTorch's generators, in memory")
@@ -602,7 +690,9 @@ def main(argv: list[str] | None = None) -> None:
                          "in-kernel draws (rng_gate becomes 'skipped')")
     args = ap.parse_args(argv)
     ih_k = args.ih_k or DEFAULT_IH_K[args.workload]
-    dim = 2 if args.workload == "hard-disk" else 3
+    pair = args.workload in PAIR_WORKLOADS
+    rng = args.rng or ("host" if pair else "in-kernel")
+    dim = 2 if args.workload in ("hard-disk", "sw2d") else 3
     field = field_from_args(args, dim, args.workload == "ka3d")
     if field is not None:
         if args.pressure is not None:
@@ -619,7 +709,9 @@ def main(argv: list[str] | None = None) -> None:
     else:
         result, *_ = run_nvt(args.workload, args.n, args.nmax, args.moves,
                              args.sweeps, args.seed, args.phi, args.wfac,
-                             args.rng, ih_k)
+                             rng, ih_k)
+        if pair and args.rng is None:
+            result["rng_note"] = HOST_ONLY_NOTE["pair"]
     if args.no_rng_gate or result["rng"] != "in-kernel":
         result["rng_gate"] = "skipped"
     else:

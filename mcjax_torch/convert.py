@@ -10,6 +10,13 @@ An external field crosses as a plain dict of its parameters
 classes are dataclasses with the same names and constructor arguments);
 ``field_from_spec`` builds the port's field from it. A frame origin
 crosses as a numpy float32 [dim] array (``origin_from_numpy``).
+
+A pair model crosses as the JAX package's checkpoint payload,
+``{"kind": class name, "params": constructor arguments}``
+(``potential_to_spec`` reads it off a model of either package, the same
+payload as ``mcjax.models.potentials.potential_to_dict``);
+``potential_from_spec`` builds the port's model from it, a fitted
+``PolynomialPotential`` with its coefficients included.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import torch
 
 from mcjax_torch.core.device import resolve_device
 from mcjax_torch.core.state import SimState
-from mcjax_torch.models import fields
+from mcjax_torch.models import fields, potentials
 
 
 def state_from_numpy(pos, occ, sweep, overflow,
@@ -92,3 +99,20 @@ def origin_from_numpy(origin, device: str | torch.device | None = None
     (CUDA unless named)."""
     o = np.array(origin, dtype=np.float32).reshape(-1)
     return torch.from_numpy(o).to(resolve_device(device))
+
+
+def potential_to_spec(pot) -> dict:
+    """{"kind": name, "params": {constructor argument: value}} of a pair
+    model of either package; tuples (a polynomial's coefficients, a
+    mixture's tables) become lists, so the spec is plain JSON."""
+    def plain(v):
+        return [plain(x) for x in v] if isinstance(v, (tuple, list)) else v
+    spec = potentials.potential_to_dict(pot)
+    return {"kind": spec["kind"],
+            "params": {k: plain(v) for k, v in spec["params"].items()}}
+
+
+def potential_from_spec(spec: dict):
+    """The port's pair model from ``potential_to_spec``'s dict (or the JAX
+    package's ``potential_to_dict`` payload)."""
+    return potentials.potential_from_dict(spec)

@@ -3,6 +3,20 @@
 // NPT, field, Philox). substep.cu instantiates the NVT and NPT forms,
 // substep_field.cu the field form and substep_philox.cu the Philox form,
 // so that nvcc builds the three translation units side by side.
+//
+// The energetic pair form (template argument Pair, a functor of pair.cuh;
+// the hard-disk forms leave it void, and all of its code sits behind
+// `if constexpr`) is instantiated by substep_pair2d.cu for the square
+// well, Lennard-Jones, WCA, soft spheres, Yukawa, Morse and polynomials.
+// Its cell capacity is a launch argument (NMAX 0), so one instantiation a
+// model serves every nmax; the frozen slots kept are those within the
+// model's reach (its cutoff, or its core where larger), up to
+// kFrozenCapPair a thread; the acceptance uniform rides the draw ring
+// (four floats a move, as in the energetic field form); a move sums the
+// pair energy of the mover at its new and its old position over the own
+// and kept frozen slots, is rejected on an overlap with a hard core, and
+// is accepted when acc_u < expf(-beta dE); each cell's summed dE of
+// accepted moves goes to de_map[j].
 
 #pragma once
 
@@ -10,7 +24,10 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "field.cuh"
+#include "pair.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -27,6 +44,10 @@ constexpr int kBlocksPerSmField = 6;
 // on 132 SMs; at 8 (64 registers) it spilled 72 bytes a thread.
 constexpr int kBlocksPerSmPhilox = 7;
 constexpr int kFrozenCap = 16;     // kept frozen slots staged a thread
+// The pair form's: a cutoff reaches farther than a disk's diameter.
+constexpr int kFrozenCapPair = 32;
+constexpr int kBlocksPerSmPair = 4;  // its launch bounds (128 registers)
+constexpr int kMaxNmax = 16;         // the largest nmax of every 2D form
 constexpr int kAhead = 4;          // moves whose draws are in flight
 constexpr int kMaxSubsteps = 4;    // the colors of a 2D sweep
 constexpr int kNeighbors = 8;
@@ -49,10 +70,27 @@ struct FieldDraws {
   float neg_beta;
 };
 
+// The pair form's arguments: the model's constants and the cell capacity
+// (its NMAX is 0). Its acceptance uniforms, dE maps and -beta travel in
+// FieldDraws.
+struct PairArgs {
+  mcjax_pair::Params pp;
+  int nmax;
+};
+
 // Floats a move in the draw ring: (pick_u, dx, dy), and acc_u in the
-// field form; the Philox form has no ring.
-template <bool kField, bool kPhilox>
-constexpr int kRingFloats = kPhilox ? 0 : (kField ? 4 : 3);
+// field and pair forms; the Philox form has no ring.
+template <bool kField, bool kPhilox, bool kPair = false>
+constexpr int kRingFloats = kPhilox ? 0 : (kField || kPair ? 4 : 3);
+
+// The pair form's energy of a mover at n against a slot at o, added to
+// *e, and its overlap, ORed into *ov.
+template <class Pair>
+__device__ __forceinline__ void pair_add(const mcjax_pair::Params& pp,
+                                         float r2, float* e, bool* ov) {
+  *ov |= mcjax_pair::overlap<Pair>(r2, pp);
+  if (r2 <= pp.rc2) *e = __fadd_rn(*e, Pair::term(r2, pp));
+}
 
 // The field's verdict on a move (field form): false if new is forbidden
 // or, for a field with energy, fails the Metropolis test with uniform ua;
@@ -149,9 +187,10 @@ template <int NMAX, class Fn>
 __device__ __forceinline__ int visit_frozen(const float* pos,
                                             const int* __restrict__ occ,
                                             const Cell& c, const Geometry& g,
-                                            Fn&& fn) {
+                                            Fn&& fn, int nmax = NMAX) {
   const int P = g.H * g.W;
-  const size_t plane = static_cast<size_t>(NMAX) * P;  // [nmax, H, W]
+  const size_t plane = static_cast<size_t>(NMAX > 0 ? NMAX : nmax) *
+                       P;  // [nmax, H, W]
   int kept = 0;
 #pragma unroll
   for (int k = 0; k < kNeighbors; ++k) {
@@ -250,33 +289,93 @@ __device__ __noinline__ unsigned overflow_moves(const float* pos,
   return accepted;
 }
 
+// The pair form's overflow pass: overflow_moves with the energy of both
+// positions summed over the own slots but the mover and the kept frozen
+// slots read again from device memory; pp is the model (a copy of the
+// launch's, as this pass is rare), nmax the cell capacity.
+template <class Pair, bool kScale>
+__device__ __noinline__ unsigned overflow_moves_pair(
+    const float* pos, const int* __restrict__ occ, int cell, int color,
+    int my_occ, float2* mine, const float* pick_u, const float* disp,
+    const float* acc_u, Geometry g, float s2, const mcjax_pair::Params pp,
+    float neg_beta, int nmax, float* de_sum) {
+  const Cell c = make_cell(cell, color, g);
+  const int P = g.H * g.W;
+  const float occ_f = static_cast<float>(my_occ);
+  unsigned accepted = 0;
+  for (int m = 0; m < g.n_moves; ++m) {
+    const size_t at = static_cast<size_t>(m) * P + cell;
+    const float u = __ldg(pick_u + at);
+    const float dx = __ldg(disp + at + static_cast<size_t>(m) * P);
+    const float dy = __ldg(disp + at + static_cast<size_t>(m + 1) * P);
+    const int p = min(static_cast<int>(floorf(__fmul_rn(u, occ_f))),
+                      my_occ - 1);
+    const float2 old = mine[p * kThreads];
+    const float new0 = __fadd_rn(old.x, dx);
+    const float new1 = __fadd_rn(old.y, dy);
+    if (new0 < c.lb0 || new0 >= c.hi0 || new1 < c.lb1 || new1 >= c.hi1) {
+      continue;
+    }
+    bool ov = false, unused = false;
+    float en = 0.f, eo = 0.f;
+    for (int s = 0; s < my_occ; ++s) {
+      if (s == p) continue;
+      const float2 o = mine[s * kThreads];
+      pair_add<Pair>(pp, pair_r2<kScale>(s2, new0, new1, o.x, o.y), &en,
+                     &ov);
+      pair_add<Pair>(pp, pair_r2<kScale>(s2, old.x, old.y, o.x, o.y), &eo,
+                     &unused);
+    }
+    visit_frozen<0>(pos, occ, c, g, [&](int, float x0, float x1) {
+      pair_add<Pair>(pp, pair_r2<kScale>(s2, new0, new1, x0, x1), &en, &ov);
+      pair_add<Pair>(pp, pair_r2<kScale>(s2, old.x, old.y, x0, x1), &eo,
+                     &unused);
+    }, nmax);
+    const float de = __fsub_rn(en, eo);
+    if (!ov && __ldg(acc_u + at) < expf(__fmul_rn(neg_beta, de))) {
+      mine[p * kThreads] = make_float2(new0, new1);
+      ++accepted;
+      *de_sum = __fadd_rn(*de_sum, de);
+    }
+  }
+  return accepted;
+}
+
 // The NPT form reads s^2 from s2p; the field form reads its field, origin
 // and acceptance uniforms from f; the Philox form generates its draws from
-// ph and reads no draws (the other forms ignore what is not theirs).
-template <int NMAX, bool kScale, bool kField, bool kPhilox>
+// ph and reads no draws; the pair form reads its model and capacity from
+// pa and its acceptance uniforms, dE maps and -beta from f (each form
+// ignores what is not its own).
+template <int NMAX, bool kScale, bool kField, bool kPhilox,
+          class Pair = void>
 __global__ void __launch_bounds__(
-    kThreads, kField ? kBlocksPerSmField
-                     : (kPhilox ? kBlocksPerSmPhilox : kBlocksPerSm))
+    kThreads, !std::is_void_v<Pair>
+                  ? kBlocksPerSmPair
+                  : (kField ? kBlocksPerSmField
+                            : (kPhilox ? kBlocksPerSmPhilox : kBlocksPerSm)))
 substeps_kernel(float* pos, const int* __restrict__ occ,
                 const int* __restrict__ perm, int start, int n, Draws draws,
                 unsigned long long* __restrict__ counts,
                 unsigned long long* __restrict__ stats, Geometry g,
                 const float* __restrict__ s2p, FieldDraws f,
-                mcjax_philox::Args ph) {
+                mcjax_philox::Args ph, PairArgs pa) {
   // Slot s of a thread at slots[s * kThreads + threadIdx.x], NMAX +
-  // kFrozenCap rows: the own slots, then the kept frozen slots; after them
-  // the ring of draws, kAhead + 1 moves of (pick_u, dx, dy[, acc_u]) (none
-  // in the Philox form); in the field form then the block's copy of the
-  // field.
-  constexpr int kRing = kRingFloats<kField, kPhilox>;
+  // kFrozenCap rows (the pair form: nmax + kFrozenCapPair): the own slots,
+  // then the kept frozen slots; after them the ring of draws, kAhead + 1
+  // moves of (pick_u, dx, dy[, acc_u]) (none in the Philox form); in the
+  // field form then the block's copy of the field.
+  constexpr bool kPair = !std::is_void_v<Pair>;
+  constexpr int kRing = kRingFloats<kField, kPhilox, kPair>;
+  constexpr int kCap = kPair ? kFrozenCapPair : kFrozenCap;
+  const int nmax = kPair ? pa.nmax : NMAX;
   extern __shared__ float2 slots[];
   __shared__ unsigned long long block_sum[2];
   const int tid = threadIdx.x;
   float2* mine = slots + tid;
-  float* ring = reinterpret_cast<float*>(slots + (NMAX + kFrozenCap) *
+  float* ring = reinterpret_cast<float*>(slots + (nmax + kCap) *
                                                      kThreads) + tid;
   const int P = g.H * g.W;
-  const size_t plane = static_cast<size_t>(NMAX) * P;
+  const size_t plane = static_cast<size_t>(nmax) * P;
   float s2 = 1.f;
   if constexpr (kScale) {
     s2 = __ldg(s2p);
@@ -294,6 +393,7 @@ substeps_kernel(float* pos, const int* __restrict__ occ,
         kRing * (kAhead + 1) * kThreads);
     if (tid == 0) *fp = f.fa.fp;
   }
+  if constexpr (kPair) field_energy = true;  // acc_u in the ring, dE maps
   if (tid == 0) block_sum[0] = block_sum[1] = 0;
   __syncthreads();
 
@@ -302,7 +402,7 @@ substeps_kernel(float* pos, const int* __restrict__ occ,
     const int color = perm[start + j];
     const float* pick_u = draws.pick_u[j];
     const float* disp = draws.disp[j];
-    const float* acc_u = kField ? f.acc_u[j] : nullptr;
+    const float* acc_u = kField || kPair ? f.acc_u[j] : nullptr;
     unsigned accepted = 0, proposed = 0;
     for (int cell = blockIdx.x * kThreads + tid; cell < P;
          cell += gridDim.x * kThreads) {
@@ -345,14 +445,20 @@ substeps_kernel(float* pos, const int* __restrict__ occ,
       float2* frozen = mine + my_occ * kThreads;
       const int kept = visit_frozen<NMAX>(
           pos, occ, c, g, [&](int k, float x0, float x1) {
-            if (k < kFrozenCap) frozen[k * kThreads] = make_float2(x0, x1);
-          });
-      if (kept > kFrozenCap) {
+            if (k < kCap) frozen[k * kThreads] = make_float2(x0, x1);
+          }, nmax);
+      if (kept > kCap) {
         atomicAdd(&stats[0], 1ull);
         if constexpr (!kPhilox) __pipeline_wait_prior(0);
-        accepted += overflow_moves<NMAX, kScale, kField, kPhilox>(
-            pos, occ, cell, color, my_occ, mine, pick_u, disp, g, s2, fp,
-            f.neg_beta, acc_u, org0, org1, &de_sum, ph, gcell, sub);
+        if constexpr (kPair) {
+          accepted += overflow_moves_pair<Pair, kScale>(
+              pos, occ, cell, color, my_occ, mine, pick_u, disp, acc_u, g,
+              s2, pa.pp, f.neg_beta, nmax, &de_sum);
+        } else {
+          accepted += overflow_moves<NMAX, kScale, kField, kPhilox>(
+              pos, occ, cell, color, my_occ, mine, pick_u, disp, g, s2, fp,
+              f.neg_beta, acc_u, org0, org1, &de_sum, ph, gcell, sub);
+        }
       } else {
         const float occ_f = static_cast<float>(my_occ);
         const int n_test = my_occ + kept;
@@ -377,7 +483,7 @@ substeps_kernel(float* pos, const int* __restrict__ occ,
             u = r[0];
             dx = r[kThreads];
             dy = r[2 * kThreads];
-            if constexpr (kField) ua = r[(kRing - 1) * kThreads];
+            if constexpr (kField || kPair) ua = r[(kRing - 1) * kThreads];
             float* w = ring + kRing * w_slot * kThreads;
             __pipeline_memcpy_async(w, pu + next, 4);
             __pipeline_memcpy_async(w + kThreads, dp + 2 * next, 4);
@@ -400,6 +506,31 @@ substeps_kernel(float* pos, const int* __restrict__ occ,
             continue;  // rejected whatever it overlaps
           }
           float de = 0.f;
+          if constexpr (kPair) {
+            // The mover parked far away (its r2 overflows to +inf, beyond
+            // every cutoff and core), both positions against the list.
+            mine[p * kThreads] = make_float2(kFar, kFar);
+            bool ov = false, unused = false;
+            float en = 0.f, eo = 0.f;
+#pragma unroll 2
+            for (int s = 0; s < n_test; ++s) {
+              const float2 o = mine[s * kThreads];
+              pair_add<Pair>(pa.pp, pair_r2<kScale>(s2, new0, new1, o.x, o.y),
+                             &en, &ov);
+              pair_add<Pair>(pa.pp, pair_r2<kScale>(s2, old.x, old.y, o.x,
+                                                    o.y),
+                             &eo, &unused);
+            }
+            de = __fsub_rn(en, eo);
+            if (!ov && ua < expf(__fmul_rn(f.neg_beta, de))) {
+              mine[p * kThreads] = make_float2(new0, new1);
+              ++accepted;
+              de_sum = __fadd_rn(de_sum, de);
+            } else {
+              mine[p * kThreads] = old;
+            }
+            continue;
+          }
           if constexpr (kField) {
             if (!field_admits(f.fa.fp, f.neg_beta, org0, org1, g.half_l,
                               g.box_l, old.x, old.y, new0, new1, ua, &de)) {
@@ -461,41 +592,54 @@ struct Shape {
   int local_bytes = 0;
 };
 
-template <int NMAX, bool kScale, bool kField, bool kPhilox = false>
-int shape_for(Shape* out) {
-  static Shape cache;
-  static int cache_dev = -1;
+// The pair form (NMAX 0) takes its capacity `nmax` at launch, so it keeps
+// one shape a capacity.
+template <int NMAX, bool kScale, bool kField, bool kPhilox = false,
+          class Pair = void>
+int shape_for(Shape* out, int nmax = NMAX) {
+  constexpr bool kPair = !std::is_void_v<Pair>;
+  constexpr auto kernel =
+      substeps_kernel<NMAX, kScale, kField, kPhilox, Pair>;
+  static Shape cache[kMaxNmax + 1];
+  static int cache_dev[kMaxNmax + 1] = {};  // device + 1; 0: not cached
+  if (nmax < 1 || nmax > kMaxNmax) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (cache_dev == dev) {
-    *out = cache;
+  if (cache_dev[nmax] == dev + 1) {
+    *out = cache[nmax];
     return 0;
   }
   Shape s;
-  s.smem = ((NMAX + kFrozenCap) * 2 +
-            kRingFloats<kField, kPhilox> * (kAhead + 1)) *
+  s.smem = ((nmax + (kPair ? kFrozenCapPair : kFrozenCap)) * 2 +
+            kRingFloats<kField, kPhilox, kPair> * (kAhead + 1)) *
                kThreads * static_cast<int>(sizeof(float)) +
            (kField ? static_cast<int>(sizeof(mcjax_field::Params)) : 0);
-  err = cudaFuncSetAttribute(substeps_kernel<NMAX, kScale, kField, kPhilox>,
+  err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              static_cast<int>(cudaSharedmemCarveoutMaxShared));
   if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (kPair) {  // above 48 KB at the larger capacities
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               s.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa,
-                              substeps_kernel<NMAX, kScale, kField, kPhilox>);
+  err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &s.blocks_per_sm, substeps_kernel<NMAX, kScale, kField, kPhilox>,
-      kThreads, s.smem);
+      &s.blocks_per_sm, kernel, kThreads, s.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&s.sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   s.regs = fa.numRegs;
   s.static_smem = static_cast<int>(fa.sharedSizeBytes);
   s.local_bytes = static_cast<int>(fa.localSizeBytes);
-  cache = s;
-  cache_dev = dev;
+  cache[nmax] = s;
+  cache_dev[nmax] = dev + 1;
   *out = s;
   return 0;
 }
@@ -505,14 +649,18 @@ int grid_blocks(const Shape& s, int cells) {
   return min(s.blocks_per_sm * s.sms, (cells + kThreads - 1) / kThreads);
 }
 
-template <int NMAX, bool kScale, bool kField, bool kPhilox = false>
+template <int NMAX, bool kScale, bool kField, bool kPhilox = false,
+          class Pair = void>
 int launch(float* pos, const int* occ, const int* perm, int start, int n,
            const Draws& draws, unsigned long long* counts,
            unsigned long long* stats, const Geometry& g, const float* s2,
            const FieldDraws& field, cudaStream_t stream,
-           const mcjax_philox::Args& philox = mcjax_philox::Args{}) {
+           const mcjax_philox::Args& philox = mcjax_philox::Args{},
+           const PairArgs& pair = PairArgs{}) {
   Shape s;
-  const int err = shape_for<NMAX, kScale, kField, kPhilox>(&s);
+  const int err = std::is_void_v<Pair>
+      ? shape_for<NMAX, kScale, kField, kPhilox, Pair>(&s)
+      : shape_for<NMAX, kScale, kField, kPhilox, Pair>(&s, pair.nmax);
   if (err != 0) return err;
   const int blocks = grid_blocks(s, g.H * g.W);
   if (blocks < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
@@ -520,12 +668,13 @@ int launch(float* pos, const int* occ, const int* perm, int start, int n,
   Geometry geo = g;
   FieldDraws f = field;
   mcjax_philox::Args ph = philox;
-  void* args[] = {&pos,   &occ,  &perm, &start, &n,  &d,
-                  &counts, &stats, &geo, &s2,    &f,  &ph};
+  PairArgs pa = pair;
+  void* args[] = {&pos,   &occ,  &perm, &start, &n,  &d,  &counts,
+                  &stats, &geo,  &s2,   &f,     &ph, &pa};
   // A launch the runtime refuses returns its error; nothing falls back.
   return static_cast<int>(cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(
-          substeps_kernel<NMAX, kScale, kField, kPhilox>),
+          substeps_kernel<NMAX, kScale, kField, kPhilox, Pair>),
       dim3(blocks),
       dim3(kThreads), args, static_cast<size_t>(s.smem), stream));
 }

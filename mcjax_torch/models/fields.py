@@ -16,8 +16,11 @@ fma(a, b, -c), ``c - a * b`` -> fma(-a, b, c)), and of two products it
 folds the one that is not a species-scaled product, else the first. The
 sub-step kernels (``csrc/field.cuh``) make the same fma at the same sites.
 The one case this misses is a product XLA shares between two terms (a
-``LinearField`` both bare and inside a ``SpeciesField`` of one composite),
-which XLA does not fold.
+``LinearField`` both bare and inside a ``SpeciesField`` of one composite):
+XLA keeps the shared product rounded and folds the species one, so its
+energy is fma(c_s, p, p) where the port's is fma(g, x, f32(c_s p)), at most
+one float32 ulp apart (a move's dE at most two), a gap the port keeps and
+``tests/test_torch_field.py::test_shared_linear_product_gap`` holds.
 
 Species coupling (mixtures): ``energy_s(x, s)`` / ``forbidden_s(x, s)``
 take the per-particle float species id ``s``; ``species_energy`` /

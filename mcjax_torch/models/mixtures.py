@@ -235,3 +235,8 @@ def kob_andersen(shift: bool = True) -> LJMixture:
     sig = ((1.0, 0.8), (0.8, 0.88))
     rc = tuple(tuple(2.5 * s for s in row) for row in sig)
     return LJMixture(epsilon=eps, sigma=sig, r_cut_table=rc, shift=shift)
+
+
+# The mixture kinds of ``potentials.potential_from_dict`` (the JAX
+# package's ``HardSphereMixture`` is not ported yet).
+MIXTURE_REGISTRY: dict[str, type] = {"LJMixture": LJMixture}

@@ -134,8 +134,13 @@ def stratified_positions(cfg: SimConfig, device: torch.device | str = "cpu"
 # ---------------------------------------------------------------------------
 
 def cell_coords(cfg: SimConfig, positions: torch.Tensor) -> torch.Tensor:
-    """Integer cell index per axis, [N, dim], for coords in [-L/2, L/2)."""
-    w = cfg.cell_width
+    """Integer cell index per axis, [N, dim], for coords in [-L/2, L/2).
+    The width is a tensor on the positions' device: on CUDA, PyTorch
+    divides by a Python scalar as a multiply by its reciprocal, which bins
+    a point within an ulp of a cell face otherwise than the CPU's true
+    division does."""
+    w = torch.tensor(cfg.cell_width, dtype=positions.dtype,
+                     device=positions.device)
     c = torch.floor((positions + cfg.box_length / 2.0) / w).to(torch.int32)
     return torch.clamp(c, 0, cfg.cells_per_side - 1)
 

@@ -1,7 +1,8 @@
 """Color sub-step: plain PyTorch version and the wrappers of its CUDA kernels.
 
-Three kernels compute color sub-steps on the card; ``substeps`` picks one
-by (dim, model) and raises for any other configuration:
+Five kernels compute color sub-steps on the card; ``substeps`` picks one
+by (dim, model) (``kernel_library``) and raises for any other
+configuration:
 
 * ``csrc/substep.cu``, 2D hard disks: one cooperative launch runs a range
   of sub-steps of a sweep (all four in ``mc_sweep``), with a grid barrier
@@ -22,6 +23,16 @@ by (dim, model) and raises for any other configuration:
   coordinates and the species plane read-only.
   It stands for the binary-mixture form of ``_fused_core`` (frozen cache)
   and of ``pallas_color_substep``, host-random form.
+* ``csrc/substep_pair.cu``, the other 3D single-species models (hard
+  spheres, square wells, WCA, soft spheres, Yukawa, Morse, polynomials):
+  the LJ kernel's body (``csrc/substep_3d.cuh``) templated on the pair
+  functor (``csrc/pair.cuh``, whose constants ``pair_params`` flattens),
+  with an overlap test for the hard-core models and no energy cache for
+  hard spheres; host-random NVT form.
+* ``csrc/substep_pair2d.cu``, the 2D energetic single-species models
+  (square wells, LJ, WCA, soft spheres, Yukawa, Morse, polynomials): the
+  2D kernel's energetic pair form, one cooperative launch a range of
+  sub-steps (K1, and K3 as a range of one); host-random NVT form.
 
 ``color_substep`` below is the plain version of the first two, a twin of
 ``mcjax.ops.sweep.color_substep`` (hard-core and energetic branches);
@@ -62,6 +73,11 @@ sit in their own libraries. On the CPU a key is materialized by
 plain version. The Philox form takes neither a field (later work,
 ROADMAP B3) nor an NPT scale (the JAX package has no such form); on CUDA
 ``substeps`` raises for those rather than materialize the draws.
+
+The pair models of the last two kernels have their NVT host-random form
+only: under a ``PhiloxKey``, an NPT scale or a field ``substeps`` raises
+NotImplementedError on CUDA (ROADMAP B8), and never runs the plain version
+there.
 """
 
 from __future__ import annotations
@@ -79,8 +95,12 @@ from mcjax_torch.core.device import check_tensors
 from mcjax_torch.core.geometry import wrap_into_box
 from mcjax_torch.models import fields
 from mcjax_torch.models.mixtures import LJMixture, _blend
-from mcjax_torch.models.potentials import (HardSphere, LennardJones, Potential,
-                                           fma_f32, pair_interaction)
+from mcjax_torch.models.potentials import (WCA, HardSphere, LennardJones,
+                                           Morse, PolynomialPotential,
+                                           Potential, SoftSphere, SquareWell,
+                                           Yukawa, fma_f32,
+                                           interaction_reach,
+                                           pair_interaction)
 from mcjax_torch.ops import cells
 from mcjax_torch.ops.random import (MASK32, PhiloxKey, PhiloxRandoms,
                                     irwin_hall_constants, move_layout,
@@ -164,6 +184,90 @@ LIB_MIX = CudaLibrary("substep_mix", {
     "mcjax_substep_mix3d_philox": [*_ARGS_MIX_PHILOX, _P, _S],
     "mcjax_substep_mix3d_shape": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
 })
+
+# The other 3D single-species models (csrc/substep_pair.cu): the LJ
+# kernel's arguments without the model's four constants and s2, then the
+# model (PairParams) and the stream.
+LIB_PAIR = CudaLibrary("substep_pair", {
+    "mcjax_substep_pair3d": [*_ARGS_LJ[:17], ctypes.c_float, ctypes.c_float,
+                             _P, _S],
+    "mcjax_substep_pair3d_shape": [ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p],
+})
+
+# The 2D energetic pair form (csrc/substep_pair2d.cu).
+LIB_PAIR2D = CudaLibrary("substep_pair2d", {
+    "mcjax_substep_pair2d": [
+        _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float, _P, _S],
+    "mcjax_substep_pair2d_shape": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p],
+})
+
+MAX_PAIR_COEFFS = 17   # csrc/pair.cuh kMaxCoeffs
+
+
+class PairParams(ctypes.Structure):
+    """csrc/pair.cuh ``mcjax_pair::Params``: a pair model's constants."""
+    _fields_ = [("model", ctypes.c_int), ("n", ctypes.c_int),
+                ("rc2", ctypes.c_float), ("core2", ctypes.c_float),
+                ("a", ctypes.c_float), ("b", ctypes.c_float),
+                ("c", ctypes.c_float), ("d", ctypes.c_float),
+                ("coef", ctypes.c_float * MAX_PAIR_COEFFS)]
+
+
+# csrc/pair.cuh ModelId of each model class.
+PAIR_MODELS = {HardSphere: 0, LennardJones: 1, SquareWell: 2, WCA: 3,
+               SoftSphere: 4, Yukawa: 5, Morse: 6, PolynomialPotential: 7}
+
+
+@functools.lru_cache(maxsize=None)
+def pair_params(pot: Potential) -> PairParams:
+    """The pair functor's ``PairParams`` for ``pot``: every constant the
+    float32 value the plain version computes with (f32(r_cut^2), f32 of
+    each product the model forms on the host, the polynomial's f32
+    coefficients). Cached per model (models are frozen). Raises
+    NotImplementedError for a model no pair functor covers."""
+    cls = type(pot)
+    if cls not in PAIR_MODELS:
+        raise NotImplementedError(
+            f"no pair functor of the sub-step kernels covers {pot!r}")
+    pp = PairParams(model=PAIR_MODELS[cls], rc2=_f32(pot.r_cut * pot.r_cut))
+    if pot.has_hard_core:
+        core = pot.core_diameter if cls is PolynomialPotential \
+            else pot.diameter
+        pp.core2 = _f32(core * core)
+    if cls is LennardJones:
+        pp.a, pp.b, pp.c = (_f32(pot.sigma * pot.sigma),
+                            _f32(4.0 * pot.epsilon), _f32(pot.shift_value))
+    elif cls is SquareWell:
+        pp.a = _f32(-pot.epsilon)
+    elif cls is WCA:
+        pp.a, pp.b, pp.c = (_f32(pot.sigma * pot.sigma),
+                            _f32(4.0 * pot.epsilon), _f32(pot.epsilon))
+    elif cls is SoftSphere:
+        if pot.exponent < 1:
+            raise NotImplementedError(f"{pot!r}: the kernels take an "
+                                      "exponent >= 1")
+        pp.a, pp.b, pp.n = (_f32(pot.sigma * pot.sigma), _f32(pot.epsilon),
+                            pot.exponent)
+    elif cls is Yukawa:
+        pp.a, pp.b, pp.c = (_f32(pot.epsilon * pot.sigma), _f32(-pot.kappa),
+                            _f32(pot.sigma))
+    elif cls is Morse:
+        pp.a, pp.b, pp.c, pp.d = (_f32(-pot.a), _f32(pot.r0),
+                                  _f32(pot.epsilon), _f32(pot.shift_value))
+    elif cls is PolynomialPotential:
+        if len(pot.coeffs) > MAX_PAIR_COEFFS:
+            raise NotImplementedError(
+                f"the kernels take a polynomial of degree <= "
+                f"{MAX_PAIR_COEFFS - 1}; {pot!r} has degree "
+                f"{len(pot.coeffs) - 1}")
+        pp.n = len(pot.coeffs)
+        pp.coef[:pp.n] = [_f32(c) for c in pot.coeffs]
+    return pp
 
 
 class PhiloxArgs(ctypes.Structure):
@@ -379,19 +483,28 @@ def kernel_stats(device: torch.device) -> torch.Tensor:
 
 def kernel_shape(lib: CudaLibrary, nmax: int, cells: int = 0,
                  scaled: bool = False, field: bool = False,
-                 philox: bool = False) -> dict:
+                 philox: bool = False, pot: Potential | None = None
+                 ) -> dict:
     """The launch shape of a sub-step kernel at ``nmax`` on the current
     device (its NPT form if ``scaled``, its field form if ``field``, its
-    Philox form if ``philox``), from
+    Philox form if ``philox``; the pair libraries' instantiation for
+    ``pot``), from
     the CUDA runtime: registers a thread, static and dynamic shared memory
     a block (bytes), local memory a thread (bytes), resident warps an SM
     and the staged frozen slots a warp (energetic kernels) or a thread
-    (2D); for the 2D kernel also the blocks of its cooperative grid at
+    (2D); for the 2D kernels also the blocks of the cooperative grid at
     ``cells`` cells a color."""
     keys = ["registers", "static_smem", "dynamic_smem", "local_bytes",
             "warps_per_sm", "staged_capacity"]
     form = 3 if philox else (2 if field else int(scaled))
-    if lib is LIB and philox:
+    if lib is LIB_PAIR2D:
+        fn, args = "mcjax_substep_pair2d_shape", (PAIR_MODELS[type(pot)],
+                                                  nmax, cells)
+        keys.append("grid_blocks")
+    elif lib is LIB_PAIR:
+        fn, args = "mcjax_substep_pair3d_shape", (PAIR_MODELS[type(pot)],
+                                                  nmax)
+    elif lib is LIB and philox:
         lib, fn, args = LIB_PHILOX, "mcjax_substep_2d_philox_shape", (nmax,
                                                                      cells)
         keys.append("grid_blocks")
@@ -610,12 +723,18 @@ def kernel_library(cfg: SimConfig, pot: Potential) -> CudaLibrary:
                 f"the 2D disk sub-step kernel is built for nmax <= "
                 f"{KERNEL_NMAX}")
         return LIB
-    if cfg.dim == 3 and isinstance(pot, LennardJones):
+    if cfg.dim == 2 and type(pot) in PAIR_MODELS:
+        if cfg.nmax > KERNEL_NMAX:
+            raise NotImplementedError(
+                f"the 2D pair sub-step kernel is built for nmax <= "
+                f"{KERNEL_NMAX}")
+        return LIB_PAIR2D
+    if cfg.dim == 3 and type(pot) in PAIR_MODELS:
         if cfg.nmax > KERNEL_NMAX_LJ:
             raise NotImplementedError(
-                f"the 3D LJ sub-step kernel is built for nmax <= "
-                f"{KERNEL_NMAX_LJ}")
-        return LIB_LJ
+                f"the 3D {type(pot).__name__} sub-step kernel is built for "
+                f"nmax <= {KERNEL_NMAX_LJ}")
+        return LIB_LJ if isinstance(pot, LennardJones) else LIB_PAIR
     if cfg.dim == 3 and isinstance(pot, LJMixture):
         if not pot.supports_mover_hoist:
             raise NotImplementedError(
@@ -630,8 +749,9 @@ def kernel_library(cfg: SimConfig, pot: Potential) -> CudaLibrary:
         return LIB_MIX
     raise NotImplementedError(
         f"no CUDA sub-step kernel for a {cfg.dim}D {type(pot).__name__} "
-        "model: the kernels cover 2D hard disks, 3D Lennard-Jones and 3D "
-        "binary LJ mixtures")
+        "model: the kernels cover the single-species pair models of "
+        "mcjax_torch.models.potentials in 2D and 3D and 3D binary LJ "
+        "mixtures")
 
 
 Draw = tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]
@@ -728,6 +848,15 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
         de, acc, prop = (torch.stack(t) for t in zip(*outs))
         return de, acc, prop
     lib = kernel_library(cfg, pot)
+    if lib in (LIB_PAIR, LIB_PAIR2D):
+        left_out = ("a PhiloxKey (in-kernel draws)" if key is not None else
+                    "an NPT box scale" if scale is not None else
+                    "an external field" if field is not None else None)
+        if left_out is not None:
+            raise NotImplementedError(
+                f"the {cfg.dim}D {type(pot).__name__} sub-step kernel has "
+                f"its host-random NVT form only, not one under {left_out} "
+                "(ROADMAP B8): run it with TorchRandoms, NVT, no field")
     if dev.type != "cuda":
         raise ValueError(f"no sub-step for device {dev}")
     ph = None
@@ -747,25 +876,29 @@ def substeps(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
     s2 = None if scale is None else scale_squared(scale, torch.float32, dev)
     fk = None if field is None else \
         FieldKernel(field_params(field, cfg.dim, lib is LIB_MIX), origin)
-    if lib is LIB:
+    if lib in (LIB, LIB_PAIR2D):
         counts = torch.zeros((n, 2), dtype=torch.int64, device=dev)
         de = torch.zeros(n, dtype=torch.float32, device=dev)
         if ph is not None:
             launch_philox_kernel(cfg, pot, pos, occ, perm, start, n, ph,
                                  counts)
-        elif fk is None:
+        elif lib is LIB and fk is None:
             launch_kernel(cfg, pot, pos, occ, perm, start,
                           [d[0] for d in draws], [d[1] for d in draws],
                           counts, s2)
         else:
             de_map = torch.zeros((n, *bs), dtype=torch.float32, device=dev)
-            launch_field_kernel(cfg, pot, pos, occ, perm, start, draws,
-                                counts, de_map, fk)
+            if lib is LIB_PAIR2D:
+                launch_pair2d_kernel(cfg, pot, pos, occ, perm, start, draws,
+                                     counts, de_map)
+            else:
+                launch_field_kernel(cfg, pot, pos, occ, perm, start, draws,
+                                    counts, de_map, fk)
             de = de_map.flatten(1).sum(1)
         return de, counts[:, 0], counts[:, 1]
     de_map = torch.empty((n, *bs), dtype=torch.float32, device=dev)
     acc_map = torch.empty((n, *bs), dtype=torch.int32, device=dev)
-    launch = launch_lj_kernel if lib is LIB_LJ else launch_mix_kernel
+    launch = LAUNCH_3D[lib]
     for j, (pick_u, disp, acc_u) in enumerate(draws):
         launch(cfg, pot, pos, occ, perm, start + j, pick_u, disp, acc_u,
                de_map[j], acc_map[j], s2, fk, ph)
@@ -879,6 +1012,31 @@ def launch_field_kernel(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
         torch.cuda.current_stream(pos.device).cuda_stream, field=True)
 
 
+def launch_pair2d_kernel(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
+                         occ: torch.Tensor, perm: torch.Tensor, start: int,
+                         draws: list[Draw], counts: torch.Tensor,
+                         de_map: torch.Tensor) -> None:
+    """One cooperative launch of the 2D kernel's energetic pair form on
+    inputs ``substeps`` has checked: ``launch_field_kernel``'s outputs for
+    the pair model ``pot`` (``pair_params``), its frozen slots culled at
+    the model's reach, every draw's acc_u read."""
+    h, w = cfg.block_shape
+    n = len(draws)
+    ptrs = ctypes.c_void_p * n
+    LIB_PAIR2D.launch(
+        "mcjax_substep_pair2d",
+        pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), start, n,
+        ptrs(*(d[0].data_ptr() for d in draws)),
+        ptrs(*(d[1].data_ptr() for d in draws)),
+        ptrs(*(d[2].data_ptr() for d in draws)),
+        counts.data_ptr(), kernel_state(pos.device).data_ptr(),
+        de_map.data_ptr(), h, w, cfg.nmax, cfg.n_moves,
+        cfg.cell_width, cfg.box_length / 2.0, cfg.box_length,
+        *cull_constants(cfg, interaction_reach(pot)), -cfg.beta,
+        ctypes.addressof(pair_params(pot)),
+        torch.cuda.current_stream(pos.device).cuda_stream)
+
+
 def launch_lj_kernel(cfg: SimConfig, pot: LennardJones, pos: torch.Tensor,
                      occ: torch.Tensor, perm: torch.Tensor, i: int,
                      pick_u: torch.Tensor, disp: torch.Tensor,
@@ -915,6 +1073,35 @@ def launch_lj_kernel(cfg: SimConfig, pot: LennardJones, pos: torch.Tensor,
         return
     LIB_LJ.launch("mcjax_substep_lj3d", *args, s2_pointer(s2), stream,
                   npt=s2 is not None)
+
+
+def launch_pair3d_kernel(cfg: SimConfig, pot: Potential, pos: torch.Tensor,
+                         occ: torch.Tensor, perm: torch.Tensor, i: int,
+                         pick_u: torch.Tensor, disp: torch.Tensor,
+                         acc_u: torch.Tensor | None, de_map: torch.Tensor,
+                         acc_map: torch.Tensor, s2: torch.Tensor | None = None,
+                         fk: FieldKernel | None = None,
+                         ph: PhiloxArgs | None = None) -> None:
+    """One launch of the 3D pair kernel for the model ``pot``
+    (``pair_params``; frozen slots culled at its reach) with
+    ``launch_lj_kernel``'s outputs. It has the host-random NVT form only
+    (ROADMAP B8): ``s2``, ``fk`` and ``ph`` must be None; acc_u is None
+    for a model without energy."""
+    if s2 is not None or fk is not None or ph is not None:
+        raise NotImplementedError("the 3D pair kernel has its host-random "
+                                  "NVT form only (ROADMAP B8)")
+    LIB_PAIR.launch(
+        "mcjax_substep_pair3d",
+        pos.data_ptr(), occ.data_ptr(), perm.data_ptr(), i,
+        pick_u.data_ptr(), disp.data_ptr(),
+        None if acc_u is None else acc_u.data_ptr(),
+        de_map.data_ptr(), acc_map.data_ptr(),
+        kernel_state(pos.device).data_ptr(),
+        cfg.half_cps, cfg.nmax, cfg.n_moves,
+        cfg.cell_width, cfg.box_length / 2.0, cfg.box_length, cfg.beta,
+        *cull_constants(cfg, interaction_reach(pot)),
+        ctypes.addressof(pair_params(pot)),
+        torch.cuda.current_stream(pos.device).cuda_stream)
 
 
 @functools.lru_cache(maxsize=None)
@@ -967,3 +1154,8 @@ def launch_mix_kernel(cfg: SimConfig, pot: LJMixture, pos: torch.Tensor,
         return
     LIB_MIX.launch("mcjax_substep_mix3d", *args, s2_pointer(s2), stream,
                    npt=s2 is not None)
+
+
+# The 3D sub-step kernels' launch helpers, by library (one signature).
+LAUNCH_3D = {LIB_LJ: launch_lj_kernel, LIB_MIX: launch_mix_kernel,
+             LIB_PAIR: launch_pair3d_kernel}

@@ -13,7 +13,7 @@ import torch
 
 from mcjax_torch.core.config import SimConfig
 from mcjax_torch.core.state import SimState
-from mcjax_torch.models.potentials import Potential
+from mcjax_torch.models.potentials import Potential, core_diameter
 from mcjax_torch.ops import cells
 
 
@@ -112,7 +112,8 @@ def validate_state(cfg: SimConfig, state: SimState,
     depth = 0.0
     if pot is not None and pot.has_hard_core:
         s = 1.0 if scale is None else float(scale)
-        depth = max(0.0, pot.r_cut - s * min_pair_distance(cfg, pos, occ)) / ulp
+        depth = max(0.0, core_diameter(pot)
+                    - s * min_pair_distance(cfg, pos, occ)) / ulp
         if depth > 16:
             raise StateInvariantError(
                 f"hard-core overlap {depth:.2f} ulps of L/2 = {ulp:.3g} deep")

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where a sweep of the port's main path spends its time, on one GPU.
 
-    python3 scripts/profile_torch_sweep.py [--workload {hard-disk,lj3d,ka3d}]
+    python3 scripts/profile_torch_sweep.py [--workload {hard-disk,lj3d,ka3d,
+                                                        hs3d,sw3d,sw2d}]
                                            [--moves 64 8] [--sweeps 10]
                                            [--rng {in-kernel,host}]
                                            [--tree DIR]
@@ -10,8 +11,10 @@ For each n_moves: builds the workload's system, as ``mcjax_torch.bench``
 does (hard-disk: N = 1,048,576, phi 0.5, nmax 7, n_moves 64 and 8 by
 default; lj3d: N = 1,000,000, rho 0.8, nmax 24, n_moves 60 by default, from
 the stratified start; ka3d: the Kob-Andersen mixture at N = 1,000,000,
-rho 1.2, nmax 34, n_moves 60 by default, from the stratified start), warms
-up, then over ``--sweeps`` sweeps measures
+rho 1.2, nmax 34, n_moves 60 by default, from the stratified start; the
+pair-model workloads hs3d, sw3d and sw2d at their bench defaults, host
+draws, n_moves 60, 60 and 64 by default), warms up, then over
+``--sweeps`` sweeps measures
   * wall ms per sweep (host clock around work that ends in a synchronize),
   * host ms per sweep to enqueue the work (host clock, no synchronize),
   * device busy ms per sweep and kernel time by name (torch.profiler),
@@ -20,7 +23,8 @@ up, then over ``--sweeps`` sweeps measures
 and prints one JSON line per n_moves with the device idle share
 1 - busy / wall. ``--rng`` picks the draws as ``mcjax_torch.bench`` does:
 in-kernel (the sub-step kernels' Philox forms, ih_k 8 in 3D and 12 in 2D;
-the default) or host draws (``TorchRandoms``), through
+the default but for the pair workloads, whose kernels take host draws
+only) or host draws (``TorchRandoms``), through
 ``mcjax_torch.bench.make_randoms``. ``--tree`` profiles another
 checkout's ``mcjax_torch`` (by default the tree this script lies in; it
 needs ``bench.make_randoms``), to compare with a parent commit in one chip
@@ -43,15 +47,8 @@ from torch.profiler import ProfilerActivity, profile
 def measure(workload: str, n_moves: int, sweeps: int, rng: str) -> dict:
     from mcjax_torch import bench
     from mcjax_torch.ops.sweep import run_sweeps
-    if workload == "lj3d":
-        cfg, pot, st = bench.build_lj3d(1_000_000, 24, n_moves,
-                                        device="cuda")
-    elif workload == "ka3d":
-        cfg, pot, st = bench.build_ka3d(1_000_000, 34, n_moves,
-                                        device="cuda")
-    else:
-        cfg, pot, st = bench.build(1 << 20, 0.5, 2.0, 7, n_moves,
-                                   device="cuda")
+    cfg, pot, st, _ = bench.build_workload(workload, n_moves=n_moves,
+                                           device="cuda")
     rnd = bench.make_randoms(rng, 0, torch.device("cuda"),
                              bench.DEFAULT_IH_K[workload])
     st, _ = run_sweeps(cfg, pot, st, sweeps, rnd)
@@ -97,13 +94,14 @@ def measure(workload: str, n_moves: int, sweeps: int, rng: str) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=("hard-disk", "lj3d", "ka3d"),
+    ap.add_argument("--workload", choices=("hard-disk", "lj3d", "ka3d",
+                                           "hs3d", "sw3d", "sw2d"),
                     default="hard-disk")
     ap.add_argument("--moves", type=int, nargs="+", default=None,
-                    help="64 8 (hard-disk) / 60 (lj3d, ka3d)")
+                    help="64 8 (hard-disk) / 64 (sw2d) / 60 (the others)")
     ap.add_argument("--sweeps", type=int, default=10)
-    ap.add_argument("--rng", choices=("in-kernel", "host"),
-                    default="in-kernel")
+    ap.add_argument("--rng", choices=("in-kernel", "host"), default=None,
+                    help="in-kernel, but host for hs3d, sw3d and sw2d")
     ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     args = ap.parse_args()
@@ -113,9 +111,12 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
-    moves = args.moves or ([64, 8] if args.workload == "hard-disk" else [60])
+    moves = args.moves or {"hard-disk": [64, 8], "sw2d": [64]}.get(
+        args.workload, [60])
+    rng = args.rng or ("host" if args.workload in ("hs3d", "sw3d", "sw2d")
+                       else "in-kernel")
     for n_moves in moves:
-        res = measure(args.workload, n_moves, args.sweeps, args.rng)
+        res = measure(args.workload, n_moves, args.sweeps, rng)
         res["card"] = smi
         res["tree"] = args.tree
         print(json.dumps(res))

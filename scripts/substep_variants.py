@@ -25,7 +25,8 @@ sub-step kernel (``substep.cu``) and the shift (``shift.cu``):
 * ``shift_fmodf``: the wrap into the box by ``fmodf`` alone, without the
   subtraction that stands for it within two box lengths.
 
-Those of the energetic kernels (``substep_lj.cu``, ``substep_mix.cu``):
+Those of the energetic kernels (``substep_3d.cuh`` and ``pair.cuh``,
+whose LJ instantiation ``substep_lj.cu`` builds, and ``substep_mix.cu``):
 
 * ``lj_persistent``: the LJ kernel on the mixture kernel's persistent grid
   (warps take cells from a counter);

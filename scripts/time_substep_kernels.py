@@ -3,6 +3,7 @@
 
     python3 scripts/time_substep_kernels.py [--kernels energetic disks shift]
                                             [--workloads lj3d ka3d]
+                                            [--forms nvt npt field philox]
                                             [--sweeps 30] [--tree DIR]
                                             [--label NAME]
 
@@ -13,8 +14,11 @@ script lies in) and times, with that tree's ``mcjax_torch``:
   ``chip_smoke.py`` does (``mcjax_torch.bench.build_lj3d`` /
   ``build_ka3d``, 3 warm-up sweeps from a fixed seed), the sub-step kernel
   at every color of the next sweep, each color on its own copy of the
-  state; with ``--sweeps N`` also the workload's bench run (N warm-up and
-  N timed sweeps);
+  state, in each form of ``--forms`` (``nvt``, the default; ``npt`` at
+  box scale 0.999; ``field`` under a linear field g = 0.1 on the last
+  axis; ``philox`` with in-kernel draws at ih_k 8, the draws' key fixed);
+  with ``--sweeps N`` also the workload's bench run (N warm-up and N
+  timed sweeps);
 * ``disks``: the 2D sub-step kernel at N = 1,048,576 (phi 0.5, nmax 7,
   n_moves 64, one sweep from the lattice, as ``chip_smoke.py``): the four
   sub-steps of a sweep, as one launch where the tree's wrapper takes a
@@ -104,7 +108,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def time_workload(name: str, sweeps: int) -> dict:
+def form_args(form: str, cfg, pot) -> dict:
+    """The launch helper's keyword arguments of a kernel form."""
+    from mcjax_torch.models import fields
+    from mcjax_torch.ops import cuda_substep
+    from mcjax_torch.ops.random import PhiloxKey
+    if form == "npt":
+        scale = torch.tensor(0.999, dtype=torch.float32, device="cuda")
+        return {"s2": cuda_substep.scale_squared(scale, torch.float32,
+                                                 "cuda")}
+    if form == "field":
+        field = fields.LinearField(g=0.1, axis=cfg.dim - 1)
+        fp = cuda_substep.field_params(field, cfg.dim,
+                                       getattr(pot, "is_mixture", False))
+        origin = torch.zeros(cfg.dim, dtype=torch.float32, device="cuda")
+        return {"fk": cuda_substep.FieldKernel(fp, origin)}
+    if form == "philox":
+        return {"ph": cuda_substep.philox_args(cfg, PhiloxKey(7, 3, 8),
+                                               True)}
+    return {}
+
+
+def time_workload(name: str, sweeps: int, forms=("nvt",)) -> dict:
     import mcjax_torch as mt
     from mcjax_torch import bench
     from mcjax_torch.ops import cuda_substep
@@ -117,15 +142,20 @@ def time_workload(name: str, sweeps: int) -> dict:
     launch = getattr(cuda_substep, launch_name)
     de_map = torch.empty(cfg.block_shape, dtype=torch.float32, device="cuda")
     acc_map = torch.empty(cfg.block_shape, dtype=torch.int32, device="cuda")
-    per_color = []
-    for i in range(cfg.n_colors):
-        draws = rnd.substep(cfg, st.sweep, i, True)
-        work = st.pos.clone()
-        per_color.append(cuda_ms(lambda: launch(cfg, pot, work, st.occ, perm,
-                                                i, *draws, de_map, acc_map),
-                                 REPS))
-    out = {"kernel_ms": sum(per_color) / len(per_color),
-           "kernel_ms_per_color": per_color}
+    draws = [rnd.substep(cfg, st.sweep, i, True)
+             for i in range(cfg.n_colors)]
+    out = {}
+    for form in forms:
+        kw = form_args(form, cfg, pot)
+        per_color = []
+        for i in range(cfg.n_colors):
+            work = st.pos.clone()
+            per_color.append(cuda_ms(
+                lambda: launch(cfg, pot, work, st.occ, perm, i, *draws[i],
+                               de_map, acc_map, **kw), REPS))
+        key = "" if form == "nvt" else f"{form}_"
+        out[key + "kernel_ms"] = sum(per_color) / len(per_color)
+        out[key + "kernel_ms_per_color"] = per_color
     if sweeps:
         result, *_ = getattr(bench, run)(sweeps=sweeps)
         out.update(ms_per_sweep=result["ms_per_sweep"],
@@ -216,6 +246,8 @@ def main() -> int:
                     choices=["energetic", "disks", "shift"])
     ap.add_argument("--workloads", nargs="+", default=list(WORKLOADS),
                     choices=list(WORKLOADS))
+    ap.add_argument("--forms", nargs="+", default=["nvt"],
+                    choices=["nvt", "npt", "field", "philox"])
     ap.add_argument("--sweeps", type=int, default=0)
     ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default=None)
@@ -238,7 +270,7 @@ def main() -> int:
         res["shift"] = time_shifts()
     if "energetic" in args.kernels:
         for name in args.workloads:
-            res[name] = time_workload(name, args.sweeps)
+            res[name] = time_workload(name, args.sweeps, args.forms)
     print(json.dumps(res))
     return 0
 

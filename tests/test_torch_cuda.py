@@ -1078,3 +1078,126 @@ def test_philox_key_raises_under_a_field_or_a_scale(cuda, model):
     with pytest.raises(NotImplementedError, match="NPT"):
         cuda_substep.substeps(cfg, pot, st.pos, st.occ, perm, key,
                               scale=torch.tensor(1.0, device=cuda))
+
+
+# ---- the pair models' kernels (csrc/substep_pair.cu, substep_pair2d.cu) --
+
+def _poly():
+    r = [0.85 + k * (2.0 - 0.85) / 399 for k in range(400)]
+    shift = 4.0 * (2.0 ** -12 - 2.0 ** -6)
+    return mt.fit_pair_polynomial(
+        r, [4.0 * (x ** -12 - x ** -6) - shift for x in r], degree=8,
+        r_cut=2.0)
+
+
+PAIR_CASES = {"hard": lambda: mt.HardSphere(1.0),
+              "sw": lambda: mt.SquareWell(), "lj": lambda: mt.LennardJones(),
+              "wca": lambda: mt.WCA(), "soft": lambda: mt.SoftSphere(),
+              "yukawa": lambda: mt.Yukawa(r_cut=3.0),
+              "morse": lambda: mt.Morse(), "poly": _poly}
+
+
+def _pair_case(name, dim, cuda):
+    """A small system of a pair model by mcjax's CLI rules: hard spheres
+    at phi 0.45, square wells at rho 0.7, the smooth models at rho 0.5
+    (3D) or phi 0.5 (2D); nmax at least 8, at most the kernel's."""
+    pot = PAIR_CASES[name]()
+    n = 3000 if dim == 3 else 2500
+    kw = (dict(phi=0.45) if name == "hard" else
+          dict(rho=0.7) if name == "sw" and dim == 3 else
+          dict(rho=0.5) if dim == 3 else dict(phi=0.5))
+    limit = cuda_substep.KERNEL_NMAX_LJ if dim == 3 else \
+        cuda_substep.KERNEL_NMAX
+    auto = bench.pair_config(pot, dim, n, 16, 0.15, 0.5, **kw).nmax
+    cfg, pot, st = bench.build_pair(pot, dim, n, 16, 0.15, 0.5, **kw,
+                                    nmax=min(limit, max(8, auto)),
+                                    device=cuda)
+    return cfg, pot, st
+
+
+@pytest.mark.parametrize("name,dim", [
+    (name, dim) for dim in (3, 2) for name in sorted(PAIR_CASES)
+    if (name, dim) != ("hard", 2)])
+def test_pair_kernels_match_plain(cuda, name, dim):
+    """Each pair model's kernel against its plain version, every sub-step
+    of a sweep after two sweeps from the lattice: hard spheres and square
+    wells bit for bit (positions, counts, dE: square-well energies are
+    integers), the smooth models outside cells decided within a relative
+    1e-5 of a tie (dE within 1e-5 relative + 1e-4 where no cell differs).
+    One launch a sub-step of the model's library (LIB_LJ for 3D LJ, the
+    disk kernel's tests hold 2D hard disks)."""
+    cfg, pot, st = _pair_case(name, dim, cuda)
+    lib = cuda_substep.kernel_library(cfg, pot)
+    rnd = TorchRandoms(torch.Generator(cuda).manual_seed(cfg.n_atoms))
+    st, _ = mt.run_sweeps(cfg, pot, st, 2, rnd)      # leave the lattice
+    perm, _, _ = rnd.schedule(cfg, st.sweep)
+    exact = name in ("hard", "sw")
+    for i in range(cfg.n_colors):
+        draws = rnd.substep(cfg, st.sweep, i, pot.has_energy)
+        color = int(perm[i])
+        rec = {}
+        own, de, acc, prop = cuda_substep.color_substep(
+            cfg, pot, color, st.pos, st.occ, *draws, rec)
+        before = lib.launches
+        k_de, k_acc, k_prop = cuda_substep.substep(cfg, pot, st.pos, st.occ,
+                                                   perm, i, *draws)
+        torch.cuda.synchronize()
+        assert lib.launches == before + 1
+        differs = (st.pos[color].view(torch.int32)
+                   != own.view(torch.int32)).any(dim=0).any(dim=0)
+        assert int(k_prop) == int(prop)
+        if exact:
+            assert not bool(differs.any())
+            assert int(k_acc) == int(acc) and float(k_de) == float(de)
+            continue
+        assert not bool((differs & ~(rec["margin"] <= 1e-5)).any())
+        if not bool(differs.any()):
+            assert int(k_acc) == int(acc)
+            assert abs(float(k_de) - float(de)) <= 1e-5 * abs(float(de)) + 1e-4
+    assert int(st.occ.sum()) == cfg.n_atoms
+    mt.validate_state(cfg, st, pot)
+
+
+def test_pair_2d_one_launch_equals_its_sub_steps(cuda):
+    """2D square wells: one launch of a sweep's 4 sub-steps equals 4 plain
+    sub-steps bit for bit (positions, occupancies, each sub-step's counts
+    and dE)."""
+    cfg, pot, st = _pair_case("sw", 2, cuda)
+    rnd = TorchRandoms(torch.Generator(cuda).manual_seed(5))
+    st, _ = mt.run_sweeps(cfg, pot, st, 2, rnd)
+    perm, _, _ = rnd.schedule(cfg, st.sweep)
+    draws = [rnd.substep(cfg, st.sweep, i, True) for i in range(4)]
+    want, plain = st.pos.clone(), []
+    for i, d in enumerate(draws):
+        c = int(perm[i])
+        own, de, acc, prop = cuda_substep.color_substep(cfg, pot, c, want,
+                                                        st.occ, *d)
+        want[c] = own
+        plain.append((float(de), int(acc), int(prop)))
+    before = cuda_substep.LIB_PAIR2D.launches
+    de, acc, prop = cuda_substep.substeps(cfg, pot, st.pos, st.occ, perm,
+                                          draws)
+    torch.cuda.synchronize()
+    assert cuda_substep.LIB_PAIR2D.launches == before + 1
+    assert torch.equal(st.pos.view(torch.int32), want.view(torch.int32))
+    assert list(zip(de.tolist(), acc.tolist(), prop.tolist())) == plain
+
+
+@pytest.mark.parametrize("dim", [3, 2])
+def test_pair_kernels_raise_for_left_out_forms_on_cuda(cuda, dim):
+    """The pair kernels' Philox, NPT and field forms are later work: on
+    CUDA each raises NotImplementedError and launches nothing."""
+    from mcjax_torch.models import fields
+    from mcjax_torch.ops.random import PhiloxKey
+    cfg, pot, st = _pair_case("sw", dim, cuda)
+    rnd = TorchRandoms(torch.Generator(cuda).manual_seed(1))
+    perm, _, _ = rnd.schedule(cfg, 0)
+    draws = [rnd.substep(cfg, 0, 0, True)]
+    lib = cuda_substep.kernel_library(cfg, pot)
+    before = lib.launches
+    for draw, kw in ((PhiloxKey(1, 0, 12), {}),
+                     (draws, {"scale": torch.tensor(1.0, device=cuda)}),
+                     (draws, {"field": fields.LinearField(0.1, dim - 1)})):
+        with pytest.raises(NotImplementedError, match="ROADMAP B8"):
+            cuda_substep.substeps(cfg, pot, st.pos, st.occ, perm, draw, **kw)
+    assert lib.launches == before

@@ -36,6 +36,7 @@ Gates, with their tolerances:
 """
 
 import functools
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +57,7 @@ import mcjax_torch as mt
 from mcjax_torch import convert
 from mcjax_torch.models import fields as tf
 from mcjax_torch.ops import cuda_substep, extfield, mixture
+from shared_reference import shared
 
 NEAR_TIE = 1e-5
 DE_REL, DE_ABS = 1e-5, 1e-6
@@ -178,6 +180,58 @@ def _field_references():
     return inputs, jax.jit(ref)(inputs)
 
 
+@pytest.mark.parametrize("g", [0.1, 1.0])
+def test_shared_linear_product_gap(g):
+    """ROADMAP C9: a ``LinearField`` both bare and inside a
+    ``SpeciesField`` of one ``CompositeField``. XLA computes the product
+    p = f32(g x) once for both and folds the species product instead:
+    E = fma(c_s, p, p) (held here bit for bit against mcjax). The port, as
+    its kernels' field form (csrc/field.cuh), folds the bare product:
+    fma(g, x, f32(c_s p)). The gap is kept, and held to its measured size:
+    at g = 0.1 the energies differ in about a quarter of the cases (15,083
+    of 65,536), each by at most one float32 ulp, and a mixture move's dE
+    by at most 2 ulps of the largest of the two energies and dE; at g = 1
+    there is no product to fold and both are bit for bit."""
+    rng = np.random.default_rng(3)
+    n = 1 << 16
+    x = rng.uniform(-50, 50, (3, n)).astype(np.float32)
+    xn = (x + rng.uniform(-0.3, 0.3, (3, n))).astype(np.float32)
+    s = rng.integers(0, 2, n).astype(np.float32)
+    de = rng.uniform(-3, 3, n).astype(np.float32)
+    jfield = jf.CompositeField((jf.LinearField(g=g, axis=2), jf.SpeciesField(
+        jf.LinearField(g=g, axis=2), (0.3, 0.05))))
+    tfield = port(jfield)
+    t = [torch.from_numpy(a) for a in (x, xn, s, de)]
+    want = np.asarray(jax.jit(lambda a, b: jf.species_energy(jfield, a, b))(
+        x, s))
+    got = tf.species_energy(tfield, t[0], t[2]).numpy()
+    c = np.where(s == 0, np.float32(0.3), np.float32(0.05))
+    p = np.float32(g) * x[2]
+    shared_form = tf.fma_f32(torch.from_numpy(c), torch.from_numpy(p),
+                             torch.from_numpy(p)).numpy()
+    np.testing.assert_array_equal(_bits(shared_form), _bits(want))
+    want_de = np.asarray(jax.jit(lambda d, a, b, s_: d + (
+        jf.species_energy(jfield, b, s_) - jf.species_energy(jfield, a, s_)))(
+        de, x, xn, s))
+    got_de = tf.field_delta(tfield, t[3], t[1], t[0], t[2]).numpy()
+    if g == 1.0:
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+        np.testing.assert_array_equal(_bits(got_de), _bits(want_de))
+        return
+    ulps = np.abs(got.view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+    print(f"g {g}: {np.count_nonzero(ulps)} of {n} energies differ, by at "
+          f"most {ulps.max()} ulp")
+    assert 0.1 * n < np.count_nonzero(ulps) < 0.4 * n and ulps.max() == 1
+    e_max = np.maximum(np.abs(want), np.abs(np.asarray(
+        jax.jit(lambda a, b: jf.species_energy(jfield, a, b))(xn, s))))
+    gap = np.abs(got_de.astype(np.float64) - want_de) / np.spacing(
+        np.maximum(e_max, np.abs(want_de)))
+    print(f"g {g}: dE differs in {np.count_nonzero(gap)} cases, by at most "
+          f"{gap.max()} ulps of the largest of the energies and dE")
+    assert gap.max() <= 2
+
+
 @pytest.mark.parametrize("name", sorted(FIELDS))
 def test_field_models_bitwise(name):
     """Energies (species-resolved where the field is) and forbidden masks
@@ -271,12 +325,24 @@ def _check_cells(got_pos, want_pos, margin):
 RUN_SWEEPS = 8
 
 
+def _np_state(st) -> SimpleNamespace:
+    return SimpleNamespace(pos=np.array(st.pos), occ=np.array(st.occ),
+                           sweep=int(st.sweep), overflow=bool(st.overflow))
+
+
 @pytest.fixture(scope="module")
-def confined_run():
+def confined_run(tmp_path_factory):
+    """``_confined_run``, built once per run and shared by the workers."""
+    return shared(tmp_path_factory, "torch_field_confined_run",
+                  _confined_run)
+
+
+def _confined_run():
     """tests/test_extfield_pallas.py:84: mcjax's 8-sweep walled run of hard
     disks from origin 0, as ``run_field_sweeps`` runs it (a scan of
     ``field_sweep``), with every color sub-step's inputs, draws and
-    outputs and every sweep's schedule reported out of the one compile."""
+    outputs and every sweep's schedule reported out of the one compile
+    (numpy only)."""
     kw, st = _slit_setup(seed=1)
     cfg, pot = JaxConfig(**kw), JaxHardSphere(1.0)
     log = []
@@ -312,7 +378,8 @@ def confined_run():
     jax.effects_barrier()
     n_colors = cfg.n_colors
     subs = [log[i * n_colors:(i + 1) * n_colors] for i in range(RUN_SWEEPS)]
-    return kw, st, sched, subs, (end, np.array(org), np.array(m.accepted))
+    return kw, _np_state(st), sched, subs, (_np_state(end), np.array(org),
+                                            np.array(m.accepted))
 
 
 @pytest.fixture(scope="module")

@@ -40,6 +40,7 @@ directly.
 
 import dataclasses
 from functools import partial
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -55,6 +56,7 @@ from mcjax.ops import sweep as jsweep
 
 import mcjax_torch as mt
 from mcjax_torch.ops import cells, cuda_shift, cuda_substep
+from shared_reference import shared
 
 KW = dict(dim=3, n_atoms=500, box_length=10.0, cells_per_side=4, nmax=24,
           n_moves=3, proposal="gaussian", step_size=0.2, beta=0.5, seed=0)
@@ -92,8 +94,7 @@ def _log(log, kind, *arrays):
     log.append((kind, *(np.array(a) for a in arrays)))
 
 
-@pytest.fixture(scope="module")
-def reference():
+def _reference():
     """mcjax's 3-sweep run: per sweep a list of sub-steps, each
     (color, pos in, own out, dE, accepted, proposed, pick_u, disp, acc_u),
     and the shift (pos in, occ, axis, d, pos out, occ out, overflow); plus
@@ -133,7 +134,20 @@ def reference():
         sweeps.append((subs, shift))
         metrics.append((float(m.delta_e), int(m.accepted), int(m.proposed),
                         bool(ovf)))
-    return st0, st, sweeps, metrics
+    return _state(st0), _state(st), sweeps, metrics
+
+
+def _state(st) -> dict:
+    return dict(pos=np.array(st.pos), occ=np.array(st.occ))
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """``_reference``, built once per run (numpy only)."""
+    st0, st, sweeps, metrics = shared(tmp_path_factory, "torch_lj3d_reference",
+                                      _reference)
+    return (SimpleNamespace(**st0), SimpleNamespace(**st), sweeps,
+            metrics)
 
 
 def port_substep(entry, occ):

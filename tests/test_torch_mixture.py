@@ -37,6 +37,7 @@ Gates, with their tolerances:
 
 import dataclasses
 from functools import partial
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -53,6 +54,7 @@ from mcjax.ops import sweep as jsweep
 
 import mcjax_torch as mt
 from mcjax_torch.ops import cells, cuda_shift, cuda_substep, mixture
+from shared_reference import shared
 
 KA_KW = dict(dim=3, n_atoms=100, box_length=10.0, cells_per_side=4, nmax=12,
              n_moves=6, proposal="gaussian", step_size=0.15, beta=1.0,
@@ -115,8 +117,7 @@ def jax_shift(cfg, pos, occ, axis, d):
     return tuple(np.array(a) for a in out)
 
 
-@pytest.fixture(scope="module")
-def reference():
+def _reference():
     """mcjax's 3-sweep KA run: per sweep a list of sub-steps, each
     (color, pos in, own out, dE, accepted, proposed, pick_u, disp, acc_u),
     and the shift (pos in, occ, axis, d, pos out, occ out, overflow); plus
@@ -156,7 +157,20 @@ def reference():
         sweeps.append((subs, shift))
         metrics.append((float(m.delta_e), int(m.accepted), int(m.proposed),
                         bool(ovf)))
-    return st0, st, sweeps, metrics
+    return _state(st0), _state(st), sweeps, metrics
+
+
+def _state(st) -> dict:
+    return dict(pos=np.array(st.pos), occ=np.array(st.occ))
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    """``_reference``, built once per run (numpy only)."""
+    st0, st, sweeps, metrics = shared(tmp_path_factory, "torch_mixture_reference",
+                                      _reference)
+    return (SimpleNamespace(**st0), SimpleNamespace(**st), sweeps,
+            metrics)
 
 
 @pytest.fixture(scope="module")
@@ -279,9 +293,14 @@ def test_run_sweeps_matches_mcjax(reference, substeps):
 
 
 @pytest.fixture(scope="module")
-def dense_reference():
+def dense_reference(tmp_path_factory):
     """mcjax's binning, unbinning, neighbor stacks and float32 cell total
-    of the DENSE start, compiled as one function."""
+    of the DENSE start, compiled as one function (built once per run)."""
+    return shared(tmp_path_factory, "torch_mixture_dense_reference",
+                  _dense_reference)
+
+
+def _dense_reference():
     def ref(r, s):
         st = jmix.init_mixture_state(JDENSE, r, s)
         flat = jmix.unbin_mixture(JDENSE, st.pos, st.occ)

@@ -31,6 +31,7 @@ their tolerances:
 """
 
 import math
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -52,6 +53,7 @@ from mcjax_torch import bench
 from mcjax_torch.ops import cells, cuda_substep, mixture
 from mcjax_torch.ops import sweep as tsweep
 from mcjax_torch.ops.random import TorchRandoms
+from shared_reference import shared
 
 from test_torch_culling import _cfg as _cull_cfg
 from test_torch_culling import _placements, _r2
@@ -133,12 +135,12 @@ def _bits(t):
     return a.view(np.uint32) if a.dtype == np.float32 else a
 
 
-@pytest.fixture(scope="module")
-def chain():
-    """mcjax's hard-disk NPT chain and the port's, fed the same draws, from
-    the lattice start of mcjax's ``init_state(cfg, seed=4)`` (the port bins
-    it bit for bit, tests/test_torch_cells.py; built here from the port's
-    state, which spares a compile)."""
+def _mcjax_chain():
+    """mcjax's hard-disk NPT chain from the lattice start of mcjax's
+    ``init_state(cfg, seed=4)`` (the port bins it bit for bit,
+    tests/test_torch_cells.py; built here from the port's state, which
+    spares a compile), and its draws: (final positions, occupancies and
+    log scale, metrics, draw tree), numpy only."""
     jcfg, cfg = JaxConfig(**CHAIN_KW), mt.SimConfig(**CHAIN_KW)
     tst = mt.init_state(cfg, "cpu")
     st0 = JaxState(pos=jnp.asarray(tst.pos.numpy()),
@@ -153,10 +155,25 @@ def chain():
                                                 jnp.arange(CHAIN_SWEEPS))
 
     (jst, jm), tree = jax.jit(reference)(st0)
+    end = SimpleNamespace(sim=SimpleNamespace(pos=np.array(jst.sim.pos),
+                                              occ=np.array(jst.sim.occ)),
+                          log_scale=np.array(jst.log_scale))
+    return (end, jax.tree_util.tree_map(np.asarray, jm),
+            jax.tree_util.tree_map(np.asarray, tree))
+
+
+@pytest.fixture(scope="module")
+def chain(tmp_path_factory):
+    """mcjax's hard-disk NPT chain (``_mcjax_chain``, built once per run
+    and shared by the workers) and the port's, fed the same draws."""
+    jst, jm, tree = shared(tmp_path_factory, "torch_npt_chain",
+                           _mcjax_chain)
+    cfg = mt.SimConfig(**CHAIN_KW)
     rnd = MCJaxNPTRandoms(tree)
-    got, gm = mt.run_npt(cfg, mt.HardSphere(1.0), mt.init_npt(tst), CHAIN_P,
+    got, gm = mt.run_npt(cfg, mt.HardSphere(1.0),
+                         mt.init_npt(mt.init_state(cfg, "cpu")), CHAIN_P,
                          CHAIN_SWEEPS, rnd, CHAIN_DLNV)
-    return (jst, jax.tree_util.tree_map(np.asarray, jm), got, gm, rnd)
+    return (jst, jm, got, gm, rnd)
 
 
 def test_hard_disk_npt_chain_bitwise(chain):

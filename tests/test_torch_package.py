@@ -93,15 +93,19 @@ def test_wrappers_check_their_inputs():
 def test_substep_raises_where_no_kernel_runs():
     """On a device other than the CPU the wrapper never runs the plain
     version: a configuration no kernel covers raises before anything else
-    (here on the meta device, which has no kernels at all)."""
+    (here on the meta device, which has no kernels at all): a capacity
+    past a kernel's, or a model no kernel covers (a 2D mixture)."""
     meta = torch.device("meta")
     lj = mt.LennardJones(r_cut=1.0)
-    cases = [(CFG, lj), (CFG.replace(dim=3, cells_per_side=4), POT),
-             (CFG.replace(nmax=17), POT),
-             (CFG.replace(dim=3, cells_per_side=4, nmax=33), lj)]
-    for cfg, pot in cases:
+    cases = [(CFG.replace(nmax=17), lj, "nmax"),
+             (CFG.replace(dim=3, cells_per_side=4, nmax=33), POT, "nmax"),
+             (CFG.replace(nmax=17), POT, "nmax"),
+             (CFG.replace(dim=3, cells_per_side=4, nmax=33), lj, "nmax"),
+             (CFG, mt.kob_andersen(), "no CUDA sub-step kernel")]
+    for cfg, pot, match in cases:
         bs = cfg.block_shape
-        args = [torch.empty((cfg.n_colors, cfg.dim, cfg.nmax, *bs),
+        planes = cfg.dim + int(getattr(pot, "is_mixture", False))
+        args = [torch.empty((cfg.n_colors, planes, cfg.nmax, *bs),
                             device=meta),
                 torch.empty((cfg.n_colors, *bs), dtype=torch.int32,
                             device=meta),
@@ -110,7 +114,7 @@ def test_substep_raises_where_no_kernel_runs():
                 torch.empty((cfg.n_moves, *bs), device=meta),
                 torch.empty((cfg.n_moves, cfg.dim, *bs), device=meta),
                 torch.empty((cfg.n_moves, *bs), device=meta)]
-        with pytest.raises(NotImplementedError, match="kernel"):
+        with pytest.raises(NotImplementedError, match=match):
             cuda_substep.substep(cfg, pot, *args)
     cfg3 = CFG.replace(dim=3, cells_per_side=4, nmax=24)
     assert cuda_substep.kernel_library(cfg3, lj) is cuda_substep.LIB_LJ

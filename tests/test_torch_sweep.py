@@ -5,10 +5,15 @@ evaluates mcjax's own Threefry key tree, so both engines see the same
 numbers: positions, occupancies, accept and propose counts and the overflow
 flag must then be equal bit for bit. Three jitted mcjax functions serve the
 whole file: the per-sweep random draws, one sweep with its intermediate
-states exposed, and run_sweeps itself.
+states exposed, and run_sweeps itself. Their results are built once per
+pytest run and shared between xdist workers (``shared_reference``), as
+numpy arrays, in two references that two workers can build side by side:
+the run, and the draws of every sweep the tests replay with the sweep's
+steps.
 """
 
 import math
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +31,7 @@ from mcjax.ops import sweep as jsweep
 
 import mcjax_torch as mt
 from mcjax_torch.ops import cuda_shift, cuda_substep
+from shared_reference import shared
 
 N = 2048
 N_SWEEPS = 3
@@ -79,16 +85,14 @@ def _sweep_steps(perm, pos, occ, key, sweep):
 
 
 class MCJaxRandoms:
-    """Provider that hands the port mcjax's own random numbers."""
+    """Provider that hands the port mcjax's own random numbers: ``draws``
+    maps each sweep to ``_sweep_randoms``' arrays (numpy)."""
 
-    def __init__(self, fn, key):
-        self.fn, self.key, self.cache = fn, key, {}
+    def __init__(self, draws):
+        self.draws = draws
 
     def _draw(self, sweep):
-        if sweep not in self.cache:
-            out = self.fn(self.key, jnp.int32(sweep))
-            self.cache[sweep] = [torch.from_numpy(np.array(a)) for a in out]
-        return self.cache[sweep]
+        return [torch.from_numpy(a) for a in self.draws[int(sweep)]]
 
     def schedule(self, cfg, sweep):
         perm, axis, d, _, _ = self._draw(sweep)
@@ -113,19 +117,67 @@ def _jax_run():
     return (st0,) + jsweep.run_sweeps(JCFG, JPOT, st0, N_SWEEPS)
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """(initial mcjax state, state after N_SWEEPS sweeps, metrics)."""
+def _state(st: JaxState) -> dict:
+    return dict(pos=np.array(st.pos), occ=np.array(st.occ),
+                sweep=int(st.sweep), overflow=bool(st.overflow))
+
+
+def _run_reference() -> dict:
+    """mcjax's run: initial and final state and metrics (numpy only, so
+    the workers can share it)."""
     st0, st, m = jax.jit(_jax_run)()
-    return st0, st, jax.tree_util.tree_map(np.array, m)
+    return dict(st0=_state(st0), st=_state(st),
+                m=jax.tree_util.tree_map(np.array, m))
+
+
+def _steps_reference() -> dict:
+    """The draws of sweeps 0 to N_SWEEPS, and one more mcjax sweep, step
+    by step (``_sweep_steps``), from the state after N_SWEEPS sweeps: the
+    port's run on mcjax's draws, which ``test_run_sweeps_bitwise`` holds
+    equal to mcjax's ``run_sweeps`` bit for bit (so this reference needs
+    no run_sweeps compile of its own, and builds beside ``_run_reference``
+    on another worker)."""
+    st0 = jax_init_state(JCFG)
+    randoms_fn = jax.jit(_sweep_randoms)
+    draws = {sweep: [np.array(a) for a in randoms_fn(st0.key,
+                                                     jnp.int32(sweep))]
+             for sweep in range(N_SWEEPS + 1)}
+    st, _ = mt.run_sweeps(CFG, POT, to_torch(SimpleNamespace(**_state(st0))),
+                          N_SWEEPS, MCJaxRandoms(draws))
+    end = dict(pos=st.pos.numpy(), occ=st.occ.numpy(), sweep=st.sweep,
+               overflow=bool(st.overflow))
+    perm = tuple(int(c) for c in draws[N_SWEEPS][0])
+    out = jax.jit(_sweep_steps, static_argnums=0)(
+        perm, jnp.asarray(end["pos"]), jnp.asarray(end["occ"]), st0.key,
+        jnp.int32(N_SWEEPS))
+    return dict(draws=draws, st=end, perm=np.array(perm),
+                steps=jax.tree_util.tree_map(np.array, out))
 
 
 @pytest.fixture(scope="module")
-def randoms_fn():
-    return jax.jit(_sweep_randoms)
+def run_reference(tmp_path_factory):
+    return shared(tmp_path_factory, "torch_sweep_run", _run_reference)
 
 
-def to_torch(st: JaxState) -> mt.SimState:
+@pytest.fixture(scope="module")
+def steps_reference(tmp_path_factory):
+    return shared(tmp_path_factory, "torch_sweep_steps", _steps_reference)
+
+
+@pytest.fixture(scope="module")
+def jax_run(run_reference):
+    """(initial mcjax state, state after N_SWEEPS sweeps, metrics)."""
+    return (SimpleNamespace(**run_reference["st0"]),
+            SimpleNamespace(**run_reference["st"]), run_reference["m"])
+
+
+@pytest.fixture(scope="module")
+def randoms_fn(steps_reference):
+    """mcjax's draws of every sweep the tests replay."""
+    return steps_reference["draws"]
+
+
+def to_torch(st) -> mt.SimState:
     return mt.state_from_numpy(np.asarray(st.pos), np.asarray(st.occ),
                                st.sweep, st.overflow, device="cpu")
 
@@ -141,7 +193,7 @@ def assert_bitwise(got, want):
 def test_run_sweeps_bitwise(jax_run, randoms_fn):
     st0, st, m = jax_run
     got, gm = mt.run_sweeps(CFG, POT, to_torch(st0), N_SWEEPS,
-                            MCJaxRandoms(randoms_fn, st0.key))
+                            MCJaxRandoms(randoms_fn))
     assert got.sweep == N_SWEEPS
     assert_bitwise(got.pos, st.pos)
     assert_bitwise(got.occ, st.occ)
@@ -154,13 +206,11 @@ def test_run_sweeps_bitwise(jax_run, randoms_fn):
 
 
 @pytest.fixture(scope="module")
-def steps(jax_run, randoms_fn):
-    """One more mcjax sweep from the end of jax_run, step by step."""
-    _, st, _ = jax_run
-    perm = tuple(int(c) for c in randoms_fn(st.key, st.sweep)[0])
-    out = jax.jit(_sweep_steps, static_argnums=0)(perm, st.pos, st.occ,
-                                                  st.key, st.sweep)
-    return st, np.array(perm), jax.tree_util.tree_map(np.array, out)
+def steps(steps_reference):
+    """One more mcjax sweep from the state after N_SWEEPS sweeps, step by
+    step."""
+    r = steps_reference
+    return SimpleNamespace(**r["st"]), r["perm"], r["steps"]
 
 
 @pytest.mark.parametrize("i", range(4))
@@ -169,7 +219,7 @@ def test_color_substep_bitwise(steps, randoms_fn, i):
     path; the earlier sub-steps of the sweep run first."""
     st, perm, (pos_steps, accs, props, _) = steps
     tst = to_torch(st)
-    provider = MCJaxRandoms(randoms_fn, st.key)
+    provider = MCJaxRandoms(randoms_fn)
     t_perm, _, _ = provider.schedule(CFG, tst.sweep)
     np.testing.assert_array_equal(t_perm.numpy(), perm)
     for j in range(i + 1):
@@ -183,7 +233,7 @@ def test_color_substep_bitwise(steps, randoms_fn, i):
 
 def test_sweep_shift_bitwise(steps, randoms_fn):
     st, _, (pos_steps, _, _, (s_pos, s_occ, s_ovf)) = steps
-    provider = MCJaxRandoms(randoms_fn, st.key)
+    provider = MCJaxRandoms(randoms_fn)
     _, axis, d = provider.schedule(CFG, int(st.sweep))
     got_pos, got_occ, got_ovf = cuda_shift.shift(
         CFG, torch.from_numpy(pos_steps[-1]), torch.from_numpy(
